@@ -1,9 +1,10 @@
 """AMG-preconditioned CG on an unstructured SPD operator, single-chip and
 distributed.
 
-Run: python examples/amg_solve.py [n_block_rows]
-(single-chip part uses whatever device is available; the distributed part
-uses 8 virtual CPU devices if fewer than 8 real chips exist)
+Run: python examples/amg_solve.py [--cpu-sim] [n_block_rows]
+(the single-device part uses the default device; the distributed part
+needs 8 devices, or 8 virtual CPU devices with --cpu-sim, which then runs
+the whole example on the CPU)
 """
 
 import os
@@ -13,21 +14,18 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import scipy.sparse as sps
-
-
-def spd_fem(n_block_rows: int):
-    from libhpc_tpu.bench.matrices import block_random
-
-    B = block_random(n_block_rows, block=8, blocks_per_row=6, seed=11,
-                     half_band=5, far_fraction=0.02)
-    A = (B + B.T).tocsr()
-    rowsum = np.asarray(np.abs(A).sum(axis=1)).ravel()
-    return (A + sps.diags(rowsum + 1.0)).tocsr().astype(np.float32)
 
 
 def main():
-    n_block_rows = int(sys.argv[1]) if len(sys.argv) > 1 else 800
+    args = [a for a in sys.argv[1:] if a != "--cpu-sim"]
+    cpu_sim = "--cpu-sim" in sys.argv[1:]
+    n_block_rows = int(args[0]) if args else 800
+    if cpu_sim:
+        from libhpc_tpu.parallel.mesh import require_devices
+
+        require_devices(8, cpu_sim=True)
+    from libhpc_tpu.bench.matrices import spd_fem
+
     A = spd_fem(n_block_rows)
     print(f"operator: {A.shape[0]} rows, {A.nnz / 1e6:.2f}M nnz")
     rng = np.random.default_rng(0)
@@ -63,14 +61,10 @@ def main():
     print(f"plain CG for comparison: {int(it_cg)} iterations")
 
     # ---- distributed ----------------------------------------------------
-    import jax
-
-    if len(jax.devices()) < 8:
-        from libhpc_tpu.parallel.mesh import force_cpu_devices
-
-        force_cpu_devices(8)
     from libhpc_tpu.parallel.dist_amg import dist_amg_pcg
-    from libhpc_tpu.parallel.mesh import make_mesh_1d
+    from libhpc_tpu.parallel.mesh import make_mesh_1d, require_devices
+
+    require_devices(8)
 
     mesh = make_mesh_1d(8)
     xd, itd, _ = dist_amg_pcg(A, mesh, 8, b, tol=1e-6)

@@ -1,7 +1,8 @@
 """Distributed SpMV three ways: 1D+all_gather, halo-exchange DIA, 2D SUMMA.
 
-Run: python examples/distributed_spmv.py [n_devices]
-(uses virtual CPU devices when real chips are unavailable)
+Run: python examples/distributed_spmv.py [--cpu-sim] [n_devices]
+(--cpu-sim runs on n virtual CPU devices; without it n real devices are
+required)
 """
 
 import os
@@ -18,11 +19,10 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from libhpc_tpu.bench.matrices import poisson2d
 
 
-def main(nd=8):
-    from libhpc_tpu.parallel.mesh import force_cpu_devices, make_mesh_1d
+def main(nd=8, cpu_sim=False):
+    from libhpc_tpu.parallel.mesh import make_mesh_1d, require_devices
 
-    if len(jax.devices()) < nd:
-        force_cpu_devices(nd)
+    require_devices(nd, cpu_sim)
     A = poisson2d(64)  # 4096 rows
     x = np.random.default_rng(0).random(A.shape[0]).astype(np.float32)
     y_ref = A @ x
@@ -50,4 +50,5 @@ def main(nd=8):
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 8)
+    args = [a for a in sys.argv[1:] if a != "--cpu-sim"]
+    main(int(args[0]) if args else 8, cpu_sim="--cpu-sim" in sys.argv[1:])

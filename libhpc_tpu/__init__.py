@@ -1,17 +1,17 @@
-"""libhpc_tpu — a TPU-native sparse linear-algebra / HPC-primitives framework.
+"""libhpc_tpu — a sparse linear-algebra / HPC-primitives framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
-C++/CUDA library libHPC (see SURVEY.md) re-expressed for TPU pod slices:
+C++/CUDA library libHPC (see SURVEY.md), running on CUDA GPUs:
 
-- ``libhpc_tpu.sparse``   — CSR/COO/BSR/ELL containers + hierarchical block grid
-  (TPU-native replacement for the reference's ``lib/sparse`` hierarchical grid,
-  reference: lib/sparse/include/RootGrid.hpp:12).
-- ``libhpc_tpu.ops``      — Pallas/XLA kernel primitives: tiled transpose, tiled
-  exclusive scan, histogram, segmented reduce, radix sort, SpMV/SpMM/SpGEMM,
-  stencils, CG solver building blocks (replacements for lib/sort,
+- ``libhpc_tpu.sparse``   — CSR/COO/BSR/ELL/DIA/SBELL containers + hierarchical
+  block grid (replacement for the reference's ``lib/sparse`` hierarchical
+  grid, reference: lib/sparse/include/RootGrid.hpp:12), and auto_format.
+- ``libhpc_tpu.ops``      — XLA primitives and the Triton SBELL SpMV kernel:
+  transpose, exclusive scan, histogram, segmented reduce, radix sort,
+  SpMV/SpMM/SpGEMM, stencils, CG/AMG solvers (replacements for lib/sort,
   lib/gpu/radix_gpu, lib/hpc stencil workloads).
-- ``libhpc_tpu.parallel`` — device-mesh topology, halo exchange over ICI via
-  ``ppermute``, distributed SpMV/stencil (new TPU-native work; the reference is
+- ``libhpc_tpu.parallel`` — device meshes, halo exchange via ``ppermute``,
+  distributed SpMV/CG/AMG/stencil (new work; the reference is
   single-node).
 - ``libhpc_tpu.runtime``  — native C++ host runtime (arena memory pool, thread
   pool, lock-free MPMC queue, parallel MatrixMarket loader) bound via ctypes

@@ -129,6 +129,35 @@ def pwtk_like(dtype=np.float32) -> sps.csr_matrix:
                         half_band=40, far_fraction=0.02, dtype=dtype)
 
 
+def spd_from(A: sps.csr_matrix) -> sps.csr_matrix:
+    """SPD operator with A's sparsity: A + A^T + diag(|A + A^T| rowsum + 1)
+    (symmetric, strictly diagonally dominant)."""
+    S = (A + A.T).tocsr()
+    rowsum = np.asarray(np.abs(S).sum(axis=1)).ravel()
+    return (S + sps.diags(rowsum + 1.0)).tocsr().astype(np.float32)
+
+
+def spd_fem(n_block_rows: int, seed: int = 11) -> sps.csr_matrix:
+    """SPD FEM-class operator for the solvers (spd_from of block_random)."""
+    return spd_from(block_random(n_block_rows, block=8, blocks_per_row=6,
+                                 seed=seed, half_band=5, far_fraction=0.02))
+
+
+def irregular_band(n: int, per_row: int = 4, half_width: int = 120,
+                   seed: int = 0) -> sps.csr_matrix:
+    """Scalar-irregular banded matrix: per_row random entries per row
+    within +-half_width of the diagonal (many distinct diagonals, no 8x8
+    block density) — the scalar-regular auto_format route's class."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = np.clip(rows + rng.integers(-half_width, half_width + 1,
+                                       rows.size), 0, n - 1)
+    A = sps.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                       shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
 def load_or_synthesize(name: str) -> sps.csr_matrix:
     """Load $LIBHPC_MATRIX_DIR/<name>.mtx if present, else synthesize."""
     mdir = os.environ.get("LIBHPC_MATRIX_DIR", "")

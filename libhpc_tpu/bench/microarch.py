@@ -1,46 +1,39 @@
 """Micro-architecture truth suite — committed, reproducible, JSON-emitting.
 
-The TPU re-expression of the reference's four GPU testsuites
+The re-expression of the reference's GPU testsuites
 (lib/gpu/{stall_lg,stall_short,mio_throttle,transfer_overlap}_testsuite:
 first-class executables measuring the hardware facts the kernels are
-designed around). Round 1 left these truths in throwaway scripts/exp_*.py
-and a markdown table (VERDICT r1 #7); this module makes them a regression-
-checked corpus:
+designed around), in plain XLA so it runs on any backend:
 
-  gather_row_width  XLA HBM row-gather rate vs row width (the 0.35 G rows/s
-                    ceiling that motivated SBELL)
+  gather_row_width  XLA row-gather rate vs row width (the per-row gather
+                    cost that shapes the block formats)
   scatter_modes     scatter-add w/ dup keys, permutation scatter/gather,
-                    segment_sum (the reasons the kernels avoid scatter)
-  lane_shuffle      in-kernel take_along_axis(axis=1) rate — the SBELL
-                    gather primitive (128-lane dynamic shuffle)
-  dma_gather        Pallas dynamic-offset small-DMA descriptor throughput
-  roll_vs_reshape   one compare-exchange pass via pltpu.roll vs reshape
-                    pairing (the merge-sort layout decision)
+                    segment_sum
 
 Run:  python -m libhpc_tpu.bench.microarch [name ...]
-Emits one JSON line per measurement. All timings use the barrier/delta
-harness discipline; gather/shuffle inputs are runtime-perturbed so XLA
-cannot hoist them out of the timing loop.
+Emits one JSON line per measurement, naming the device it ran on. All
+timings use the barrier/delta harness discipline; gather inputs are
+runtime-perturbed so XLA cannot hoist them out of the timing loop.
 """
 
 from __future__ import annotations
 
 import json
 import sys
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from libhpc_tpu.bench.harness import time_iterated
-from libhpc_tpu.ops._pallas_utils import interpret_mode
 
 
 def _emit(name: str, **fields):
-    d = {"bench": name}
+    from libhpc_tpu.bench.harness import card
+
+    dev = jax.devices()[0]
+    d = {"bench": name, "platform": dev.platform, "kind": dev.device_kind,
+         "card": card()}
     d.update({k: (round(v, 4) if isinstance(v, float) else v)
               for k, v in fields.items()})
     print(json.dumps(d), flush=True)
@@ -54,7 +47,7 @@ def _live_flag(v):
 
 
 def bench_gather_row_width(n_rows: int = 1 << 17, m: int = 1 << 17):
-    """XLA row-gather rate vs row width b (PERF_NOTES: per-ROW cost)."""
+    """XLA row-gather rate vs row width b (the cost is per ROW)."""
     rng = np.random.default_rng(0)
     idx = jnp.asarray(rng.integers(0, n_rows, m, dtype=np.int32))
     for b in (1, 8, 16, 128):
@@ -89,167 +82,15 @@ def bench_scatter_modes(n: int = 1 << 20):
         _emit("scatter_modes", mode=name, g_writes_per_s=n / per / 1e9)
 
 
-def _lane_shuffle_call(S: int, n_tiles: int):
-    def kernel(tab_ref, idx_ref, o_ref):
-        o_ref[:] = jnp.take_along_axis(tab_ref[:], idx_ref[:], axis=1)
-
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((n_tiles * S, 128), jnp.float32),
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((S, 128), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, 128), lambda g: (g, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((S, 128), lambda g: (g, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret_mode(),
-    )
-
-
-def bench_lane_shuffle(S: int = 1024, n_tiles: int = 16):
-    """In-kernel 128-lane dynamic shuffle rate (the SBELL x-gather)."""
-    rng = np.random.default_rng(2)
-    tab = jnp.asarray(rng.random((S, 128), np.float32))
-    idx = jnp.asarray(rng.integers(0, 128, (n_tiles * S, 128), np.int32))
-    f = _lane_shuffle_call(S, n_tiles)
-
-    def step(v):
-        out = f(tab, idx * _live_flag(v))
-        return v + out[:S]
-
-    per = time_iterated(step, jnp.zeros((S, 128), jnp.float32), iters=8,
-                        iters_small=1)
-    n = n_tiles * S * 128
-    _emit("lane_shuffle", g_gathers_per_s=n / per / 1e9, table_rows=S)
-
-
-def _dma_gather_call(n_rows_table: int, n_gather: int, R: int, G: int):
-    interp = interpret_mode()  # interpreter lacks bulk semaphore waits
-
-    def kernel(idx_ref, x_any, o_ref, scr, sem):
-        g = pl.program_id(0)
-
-        def issue(i, _):
-            k = g * G + i
-            cp = pltpu.make_async_copy(
-                x_any.at[pl.ds(idx_ref[k] * R, R), :],
-                scr.at[pl.ds(i * R, R), :], sem)
-            cp.start()
-            if interp:
-                cp.wait()
-            return 0
-
-        jax.lax.fori_loop(0, G, issue, 0)
-        if not interp:  # bulk wait: all G in-flight copies share one sem
-            pltpu.semaphore_wait(sem, G)
-        o_ref[:] = scr[:]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_gather // G,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((G * R, 128), lambda g, *_: (g, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((G * R, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((n_gather * R, 128), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret_mode(),
-    )
-
-
-def bench_dma_gather(n_table: int = 1 << 12, n_gather: int = 1 << 14,
-                     R: int = 8, G: int = 256):
-    """Dynamic-offset DMA descriptor throughput ((8,128)-row gathers)."""
-    rng = np.random.default_rng(3)
-    table = jnp.asarray(rng.random((n_table * R, 128), np.float32))
-    idx = jnp.asarray(rng.integers(0, n_table, n_gather, dtype=np.int32))
-    f = _dma_gather_call(n_table * R, n_gather, R, G)
-
-    def step(v):
-        out = f(idx * _live_flag(v), table)
-        return v + out[:R]
-
-    per = time_iterated(step, jnp.zeros((R, 128), jnp.float32), iters=8,
-                        iters_small=1)
-    _emit("dma_gather", g_descriptors_per_s=n_gather / per / 1e9,
-          gb_per_s=n_gather * R * 128 * 4 / per / 1e9, rows_per_dma=R,
-          in_flight=G)
-
-
-def _cmpex_roll_call(rows: int):
-    def kernel(x_ref, o_ref):
-        x = x_ref[:]
-        y = pltpu.roll(x, 1, axis=1)
-        o_ref[:] = jnp.where(
-            jax.lax.broadcasted_iota(jnp.int32, x.shape, 1) % 2 == 0,
-            jnp.minimum(x, y), jnp.maximum(x, y))
-
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((rows, 128), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        interpret=interpret_mode(),
-    )
-
-
-def _cmpex_reshape_call(rows: int):
-    def kernel(x_ref, o_ref):
-        x = x_ref[:].reshape(rows, 64, 2)
-        a, b = x[:, :, 0], x[:, :, 1]
-        o_ref[:] = jnp.stack(
-            [jnp.minimum(a, b), jnp.maximum(a, b)], axis=2
-        ).reshape(rows, 128)
-
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((rows, 128), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        interpret=interpret_mode(),
-    )
-
-
-def bench_roll_vs_reshape(rows: int = 2048):
-    """One compare-exchange pass, roll-based vs reshape-pairing — the
-    layout decision behind the merge-path sort (PERF_NOTES)."""
-    rng = np.random.default_rng(4)
-    x0 = jnp.asarray(rng.random((rows, 128), np.float32))
-    for name, maker in (("roll", _cmpex_roll_call),
-                        ("reshape", _cmpex_reshape_call)):
-        f = maker(rows)
-        per = time_iterated(f, x0, iters=16, iters_small=2)
-        _emit("roll_vs_reshape", variant=name,
-              g_elems_per_s=rows * 128 / per / 1e9)
-
-
 ALL = {
     "gather_row_width": bench_gather_row_width,
     "scatter_modes": bench_scatter_modes,
-    "lane_shuffle": bench_lane_shuffle,
-    "dma_gather": bench_dma_gather,
-    "roll_vs_reshape": bench_roll_vs_reshape,
 }
 
 
 def main(argv):
-    names = argv or list(ALL)
-    for n in names:
-        try:
-            ALL[n]()
-        except Exception as e:  # noqa: BLE001
-            print(json.dumps({"bench": n,
-                              "error": f"{type(e).__name__}: {e}"[:200]}),
-                  flush=True)
+    for n in argv or list(ALL):
+        ALL[n]()
 
 
 if __name__ == "__main__":

@@ -10,9 +10,9 @@ overlap split (libhpc_tpu.parallel.halo.halo_stencil_overlapped) and reports
 distributed descendant of the reference's stream-overlap pattern-A study
 (cuda_tut_transfer_overlap.cu:41-142).
 
-Run: python -m libhpc_tpu.bench.overlap [n_devices] [m] [n] [radius]
-On the CPU simulation mesh the numbers validate plumbing only; the real
-measurement needs a multi-chip slice.
+Run: python -m libhpc_tpu.bench.overlap [--cpu-sim] [n_devices] [m] [n]
+[radius]. Without --cpu-sim it needs n_devices real devices; with it the
+numbers validate plumbing only.
 """
 
 from __future__ import annotations
@@ -25,13 +25,13 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 
-def run(n_devices: int = 8, m: int = 4096, n: int = 4096, radius: int = 8):
-    from libhpc_tpu.bench.harness import time_iterated
-    from libhpc_tpu.parallel.mesh import make_mesh_1d, force_cpu_devices
+def run(n_devices: int = 8, m: int = 4096, n: int = 4096, radius: int = 8,
+        cpu_sim: bool = False):
+    from libhpc_tpu.bench.harness import card, time_iterated
+    from libhpc_tpu.parallel.mesh import make_mesh_1d, require_devices
     from libhpc_tpu.parallel.dist_stencil import dist_blur2d_fn
 
-    if len(jax.devices()) < n_devices:
-        force_cpu_devices(n_devices)
+    require_devices(n_devices, cpu_sim)
     mesh = make_mesh_1d(n_devices)
     sh = NamedSharding(mesh, P("x"))
     u = jax.device_put(jnp.ones((m, n), jnp.float32), sh)
@@ -54,10 +54,12 @@ def run(n_devices: int = 8, m: int = 4096, n: int = 4096, radius: int = 8):
         "ms_overlapped": round(results["overlapped"] * 1e3, 3),
         "overlap_efficiency": round(eff, 3),
         "platform": jax.devices()[0].platform,
+        "kind": jax.devices()[0].device_kind,
+        "card": card(),
     }))
     return eff
 
 
 if __name__ == "__main__":
-    args = [int(a) for a in sys.argv[1:]]
-    run(*args)
+    run(*[int(a) for a in sys.argv[1:] if a != "--cpu-sim"],
+        cpu_sim="--cpu-sim" in sys.argv[1:])

@@ -7,11 +7,11 @@ Weak scaling: each shard owns a fixed number of rows; efficiency =
   weak_scaling_spmv   DistDIA on a Poisson band — the structured path.
   weak_scaling_sbell  DistSBELL on an unstructured 8×8-block FEM-like
                       matrix (the actual BASELINE weak-scaling workload:
-                      100M-nnz *unstructured*; VERDICT r2 #7).
+                      100M-nnz *unstructured*).
 
-Run: python -m libhpc_tpu.bench.scaling [rows_per_shard] [max_devices]
-On the CPU simulation mesh this validates the scaling harness; real
-efficiency numbers need a pod slice.
+Run: python -m libhpc_tpu.bench.scaling [--cpu-sim] [rows_per_shard]
+[max_devices]. Without --cpu-sim it needs max_devices real devices; on
+the CPU simulation it validates the scaling harness only.
 """
 
 from __future__ import annotations
@@ -34,24 +34,28 @@ def _device_counts(max_devices: int):
 
 
 def _emit_curve(name: str, rows_per_shard: int, out: dict):
+    from libhpc_tpu.bench.harness import card
+
     print(json.dumps({
         "bench": name,
         "rows_per_shard": rows_per_shard,
         "results": out,
         "platform": jax.devices()[0].platform,
+        "kind": jax.devices()[0].device_kind,
+        "card": card(),
     }), flush=True)
 
 
-def run_dia(rows_per_shard: int = 65536, max_devices: int = 8):
+def run_dia(rows_per_shard: int = 65536, max_devices: int = 8,
+            cpu_sim: bool = False):
     import numpy as np
 
     from libhpc_tpu.bench.harness import time_iterated
     from libhpc_tpu.bench.matrices import poisson2d
-    from libhpc_tpu.parallel.mesh import make_mesh_1d, force_cpu_devices
+    from libhpc_tpu.parallel.mesh import make_mesh_1d, require_devices
     from libhpc_tpu.parallel.dist_dia import DistDIA, dist_dia_spmv_fn
 
-    if len(jax.devices()) < max_devices:
-        force_cpu_devices(max_devices)
+    require_devices(max_devices, cpu_sim)
 
     out = {}
     base_nnz_rate = None
@@ -80,20 +84,20 @@ def run_dia(rows_per_shard: int = 65536, max_devices: int = 8):
 
 
 def run_sbell(rows_per_shard: int = 65536, max_devices: int = 8,
-              blocks_per_row: int = 8, half_band: int = 6):
+              blocks_per_row: int = 8, half_band: int = 6,
+              cpu_sim: bool = False):
     """DistSBELL weak scaling on an unstructured FEM-like matrix.
 
     Same efficiency math as run_dia; the workload is the block_random
     generator (the cant/pwtk structural stand-in) grown with the shard
-    count, through the overlapped all_gather + Pallas SBELL path."""
+    count, through the overlapped all_gather + SBELL path."""
     from libhpc_tpu.bench.harness import time_iterated
     from libhpc_tpu.bench.matrices import block_random
-    from libhpc_tpu.parallel.mesh import make_mesh_1d, force_cpu_devices
+    from libhpc_tpu.parallel.mesh import make_mesh_1d, require_devices
     from libhpc_tpu.parallel.dist_sbell import (DistSBELL,
                                                 dist_sbell_spmv_fn)
 
-    if len(jax.devices()) < max_devices:
-        force_cpu_devices(max_devices)
+    require_devices(max_devices, cpu_sim)
 
     out = {}
     base_nnz_rate = None
@@ -121,12 +125,13 @@ def run_sbell(rows_per_shard: int = 65536, max_devices: int = 8,
     return out
 
 
-def run(rows_per_shard: int = 65536, max_devices: int = 8):
-    dia = run_dia(rows_per_shard, max_devices)
-    sbell = run_sbell(rows_per_shard, max_devices)
+def run(rows_per_shard: int = 65536, max_devices: int = 8,
+        cpu_sim: bool = False):
+    dia = run_dia(rows_per_shard, max_devices, cpu_sim)
+    sbell = run_sbell(rows_per_shard, max_devices, cpu_sim=cpu_sim)
     return {"dia": dia, "sbell": sbell}
 
 
 if __name__ == "__main__":
-    args = [int(a) for a in sys.argv[1:]]
-    run(*args)
+    run(*[int(a) for a in sys.argv[1:] if a != "--cpu-sim"],
+        cpu_sim="--cpu-sim" in sys.argv[1:])

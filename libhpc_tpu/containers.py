@@ -1,6 +1,6 @@
 """Dense N-D containers: HaloArray (ghost-cell array).
 
-TPU re-expression of the reference's HPCHighDimensionFlatArray
+Re-expression of the reference's HPCHighDimensionFlatArray
 (lib/hpc/include/HPCHighDimensionFlatArray.hpp:54-57,107-123,151-171):
 a flat N-D array with per-dimension Low/High ghost-cell bounds, where
 negative indices address the halo. Here the padded storage is one jax
@@ -9,9 +9,9 @@ makes with compile-time Low_Bound/High_Bound template parameters), and the
 two reference access paths map to:
 
   * `operator()` unchecked negative-index reads  -> `shift()` /
-    `window()` whole-array views (vectorized: TPU reads tiles, not
-    scalars, so the idiomatic unit of access is the shifted interior
-    view a stencil consumes);
+    `window()` whole-array views (vectorized: the idiomatic unit of
+    access is the shifted interior view a stencil consumes, not a
+    scalar);
   * `at()` checked access (ref :107-123)          -> bounds are validated
     in Python at trace time (shapes/offsets are static), raising
     IndexError before any device code is built.

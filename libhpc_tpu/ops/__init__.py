@@ -1,4 +1,3 @@
-from libhpc_tpu.ops import scan, histogram, reduce, transpose, sort, matmul  # noqa: F401
-from libhpc_tpu.ops import sort_pallas  # noqa: F401
+from libhpc_tpu.ops import scan, histogram, reduce, transpose, sort  # noqa: F401
 from libhpc_tpu.ops import spmv, spmm, spgemm, stencil, solver, multigrid, precision  # noqa: F401
-from libhpc_tpu.ops import spgemm_bsr, sellp, far_pallas  # noqa: F401
+from libhpc_tpu.ops import spgemm_bsr, spmv_pallas  # noqa: F401

@@ -1,16 +1,14 @@
 """Histogram / binning kernels.
 
-TPU-native descendant of the reference's local-histogram CUDA kernels
-(lib/gpu/radix_gpu/include/cuda_local_histogram.cuh:13-92): the warp-
-aggregated shared-memory atomics become one-hot comparisons reduced on the
-VPU — there are no atomics on TPU, and none are needed because the Pallas
-grid is sequential per core and tiles accumulate into VMEM.
+Descendant of the reference's local-histogram CUDA kernels
+(lib/gpu/radix_gpu/include/cuda_local_histogram.cuh:13-92): the global
+histogram is an XLA segment-sum, the per-tile stage one-hot comparisons
+reduced per tile.
 
 Public API:
   histogram(x, n_bins)            — XLA path (segment_sum of ones)
   local_histogram(x, n_bins, tile)— per-tile histograms (T, n_bins), the
                                     'local' stage of the radix pipeline
-  histogram_pallas(x, n_bins)     — tiled Pallas kernel with VMEM accumulator
 """
 
 from __future__ import annotations
@@ -19,13 +17,9 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from libhpc_tpu.ops._util import cdiv
 
-from libhpc_tpu.ops._pallas_utils import LANE, cdiv, interpret_mode
-
-SUBLANES = 8
-TILE = SUBLANES * LANE
+TILE = 1024
 
 
 @partial(jax.jit, static_argnames=("n_bins",))
@@ -54,43 +48,3 @@ def local_histogram(x, n_bins: int = 256, tile: int = TILE):
         xt[:, :, None] == jnp.arange(n_bins, dtype=jnp.int32)[None, None, :]
     )
     return jnp.sum(onehot, axis=1, dtype=jnp.int32)
-
-
-def _hist_kernel(x_ref, o_ref, acc_ref, *, n_bins):
-    step = pl.program_id(0)
-
-    @pl.when(step == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    x = x_ref[0]  # (8, 128) int32
-    bins = jax.lax.broadcasted_iota(jnp.int32, (1, 1, n_bins), 2)
-    onehot = (x[:, :, None] == bins).astype(jnp.int32)  # (8, 128, n_bins)
-    acc_ref[:] += jnp.sum(onehot, axis=(0, 1), keepdims=True)[0]
-
-    @pl.when(step == pl.num_programs(0) - 1)
-    def _():
-        o_ref[:] = acc_ref[:]
-
-
-@partial(jax.jit, static_argnames=("n_bins",))
-def histogram_pallas(x, n_bins: int = 256):
-    """Tiled Pallas histogram with a VMEM accumulator carried across the grid."""
-    (n,) = x.shape
-    n_pad = max(TILE, cdiv(n, TILE) * TILE)
-    # pad with out-of-range bin so padding is never counted
-    xp = jnp.full((n_pad,), n_bins, jnp.int32).at[:n].set(x.astype(jnp.int32))
-    xt = xp.reshape(n_pad // TILE, SUBLANES, LANE)
-    return pl.pallas_call(
-        partial(_hist_kernel, n_bins=n_bins),
-        grid=(n_pad // TILE,),
-        in_specs=[
-            pl.BlockSpec((1, SUBLANES, LANE), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec((1, n_bins), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, n_bins), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((1, n_bins), jnp.int32)],
-        interpret=interpret_mode(),
-    )(xt)[0]

@@ -1,71 +1,19 @@
-"""Tiled dense matmul (MXU) — the reference's blocked-matmul workload
+"""Dense matmul — the reference's blocked-matmul workload
 (tests/test_hpc_benchmark/test_hpc_benchmark.cpp:758-784: 1024² blocked
-matmul) re-expressed as a Pallas MXU kernel.
+matmul) as XLA's dot with a stated precision.
 
-XLA's own dot is the production path (`jnp.dot` hits ~170 TFLOP/s bf16 on
-v5e); this kernel exists as (a) workload parity, (b) the template for fused
-sparse-block × dense products (BSR SpMM), and (c) a K-loop accumulation
-example over the sequential grid.
+float32 operands run at HIGHEST precision, so the GPU's tensor cores do
+not silently round them to TF32; other float dtypes accumulate in f32.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from libhpc_tpu.ops._pallas_utils import cdiv, interpret_mode
 
 
-def _mm_kernel(a_ref, b_ref, o_ref, acc_ref):
-    """Grid (M/TM, N/TN, K/TK); K is innermost → acc carried in VMEM."""
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jnp.dot(
-        a_ref[:], b_ref[:], preferred_element_type=jnp.float32
-    )
-
-    @pl.when(k == pl.num_programs(2) - 1)
-    def _():
-        o_ref[:] = acc_ref[:].astype(o_ref.dtype)
-
-
-@partial(jax.jit, static_argnames=("tile_m", "tile_n", "tile_k"))
-def matmul_pallas(a, b, tile_m: int = 256, tile_n: int = 256,
-                  tile_k: int = 512):
+@jax.jit
+def matmul(a, b):
     """C = A @ B with f32 accumulation (A, B any float dtype)."""
-    m, k = a.shape
-    k2, n = b.shape
-    assert k == k2
-    mp, np_, kp = (cdiv(m, tile_m) * tile_m, cdiv(n, tile_n) * tile_n,
-                   cdiv(k, tile_k) * tile_k)
-    ap = jnp.zeros((mp, kp), a.dtype).at[:m, :k].set(a)
-    bp = jnp.zeros((kp, np_), b.dtype).at[:k, :n].set(b)
-    out = pl.pallas_call(
-        _mm_kernel,
-        grid=(mp // tile_m, np_ // tile_n, kp // tile_k),
-        in_specs=[
-            pl.BlockSpec((tile_m, tile_k), lambda i, j, kk: (i, kk),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_k, tile_n), lambda i, j, kk: (kk, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_m, tile_n), lambda i, j, kk: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((mp, np_), a.dtype),
-        scratch_shapes=[pltpu.VMEM((tile_m, tile_n), jnp.float32)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * np_ * kp,
-            bytes_accessed=(mp * kp + kp * np_ + mp * np_) * a.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret_mode(),
-    )(ap, bp)
-    return out[:m, :n]
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST,
+                   preferred_element_type=jnp.float32).astype(a.dtype)

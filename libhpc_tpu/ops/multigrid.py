@@ -1,6 +1,6 @@
 """Geometric multigrid (V-cycle) for the 2D Poisson model problem.
 
-The flagship composite workload: weighted-Jacobi smoothing (VPU), 5-point
+The flagship composite workload: weighted-Jacobi smoothing, 5-point
 matrix-free operator (zero-gather stencil, ops.stencil), full-weighting
 restriction and bilinear prolongation (static strided slices — no gather),
 recursion unrolled at trace time into one XLA program.

@@ -1,16 +1,17 @@
-"""Aggregation AMG with the SBELL Pallas matvec as the smoother engine.
+"""Aggregation AMG with the SBELL matvec as the smoother engine.
 
-VERDICT r3 #8: the geometric V-cycle (ops/multigrid.py) is matrix-free;
-this module brings the multigrid capability to ARBITRARY SPD operators on
-the flagship unstructured path — the same pane-resident SBELL kernel that
-wins the configs[1] roofline (ops/spmv_pallas.py:sbell_spmv_panes) runs
-every smoothing sweep, exercising it under jit-of-solver conditions.
+The geometric V-cycle (ops/multigrid.py) is matrix-free; this module
+brings the multigrid capability to ARBITRARY SPD operators on the flagship
+unstructured path — the same pane-resident SBELL matvec
+(ops/spmv_pallas.py:sbell_spmv_panes) runs every smoothing sweep,
+exercising it under jit-of-solver conditions.
 
-Design (TPU-first):
+Design:
   * setup (host, one-time): greedy strength-based aggregation, Galerkin
     coarse operators P^T A P in scipy, each level stored as SBELL + an
     inverse-diagonal plane in GUARDED PANE layout; the coarsest level is
-    a precomputed dense inverse (MXU matmul at apply time).
+    a precomputed dense inverse (one float32 matvec at HIGHEST precision
+    at apply time).
   * apply (jit, static level structure): weighted-Jacobi sweeps entirely
     in pane layout (the kernel's output layout IS the next sweep's input
     layout — zero per-sweep transposes); piecewise-constant transfers are
@@ -42,7 +43,7 @@ from libhpc_tpu.sparse.sbell import PANE_COLS, SBELL
 class AMGLevel:
     """One fine/intermediate level of the hierarchy."""
 
-    sbell: SBELL       # the level operator on the Pallas path
+    sbell: SBELL       # the level operator
     dinv3: jax.Array   # omega / diag in GUARDED pane layout (0 on padding)
     agg: jax.Array     # (n,) i32 aggregate id of each row
     p_csr: object      # smoothed-aggregation P as CSR, or None
@@ -67,7 +68,7 @@ def _aggregate(A, theta: float):
     max_{k != i} |a_ik| — scale-invariant, so heavily diagonally-dominant
     operators still coarsen (the absolute sqrt(|a_ii a_jj|) measure made
     every edge weak on shifted SPD matrices: zero aggregation, a 62k
-    "coarse" dense inverse, and an OpenBLAS segfault — round 4). Pass 1
+    "coarse" dense inverse, and an OpenBLAS segfault). Pass 1
     seeds an aggregate from every node whose strong neighborhood is
     untouched; pass 2 attaches leftovers to a neighboring aggregate;
     pass 3 makes singletons of the rest."""
@@ -137,7 +138,7 @@ def amg_setup(A, n_levels: int = 3, theta: float = 0.25,
     """Build the hierarchy from a scipy SPD matrix (host, one-time).
 
     Coarsening stops early once the operator is <= coarse_max rows; the
-    coarsest operator is inverted densely (applied as one MXU matmul).
+    coarsest operator is inverted densely (applied as one dense matvec).
     If aggregation stalls (pathological strength graph) and the coarsest
     level exceeds coarse_hard_max, the setup raises instead of feeding a
     huge dense inverse to LAPACK.
@@ -151,7 +152,7 @@ def amg_setup(A, n_levels: int = 3, theta: float = 0.25,
     # _cycle's first sweep comes from the zero initial guess (pre-1 more
     # follow), so pre >= 1 is structural; and the V-cycle is only SPD —
     # and hence a valid CG preconditioner for pcg_op — when the smoothing
-    # is symmetric, i.e. pre == post (ADVICE r4)
+    # is symmetric, i.e. pre == post
     if pre < 1 or post < 1:
         raise ValueError(f"amg_setup: pre/post sweeps must be >= 1 "
                          f"(got pre={pre}, post={post})")
@@ -209,7 +210,8 @@ def _smooth(lev: AMGLevel, u3, f3, sweeps: int):
 def _cycle(H: AMGHierarchy, li: int, f):
     """Recursive V-cycle body (unrolled at trace time; flat f per level)."""
     if li == len(H.levels):
-        return H.coarse_inv @ f
+        return jnp.dot(H.coarse_inv, f,
+                       precision=jax.lax.Precision.HIGHEST)
     lev = H.levels[li]
     sb = lev.sbell
     npad = sb.n_panes * PANE_COLS

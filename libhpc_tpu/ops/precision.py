@@ -1,15 +1,15 @@
-"""Compensated (double-float) reductions — f64-class accuracy on f32-only
-TPU hardware.
+"""Compensated (double-float) reductions — f64-class accuracy from f32
+arithmetic.
 
-TPUs have no native f64; long CG/residual chains on large systems can lose
-3-4 digits to f32 cancellation. These routines carry each value as an
+The library computes in f32; long CG/residual chains on large systems can
+lose 3-4 digits to f32 cancellation. These routines carry each value as an
 unevaluated (hi, lo) pair using the classic error-free transformations:
 
   two_sum   — Knuth's branch-free exact addition error
   two_prod  — Dekker/Veltkamp split product error (no FMA dependency)
   df_*      — double-float arithmetic on (hi, lo) pairs
   sum_compensated / dot_compensated — log2(n)-pass vectorized tree
-      reductions in double-float (every pass is a dense VPU op; no serial
+      reductions in double-float (every pass is a dense elementwise op; no serial
       Kahan loop)
 
 Accuracy: ~2×24-bit significand ≈ f64 for n ≤ 1e8-class reductions.

@@ -1,9 +1,9 @@
 """Segmented and hierarchical reductions.
 
-TPU-native descendant of the reference's global-reduce tree kernels
+Descendant of the reference's global-reduce tree kernels
 (lib/gpu/radix_gpu/include/cuda_global_reduce_from_local.cuh:60-120 — the
-hierarchical 1024-fan-in multi-pass reduce): on TPU the tree collapses into
-XLA `segment_sum` / tiled Pallas loops, and the cross-chip level becomes
+hierarchical 1024-fan-in multi-pass reduce): the tree collapses into XLA
+`segment_sum` / reductions, and the cross-device level becomes
 `jax.lax.psum` over a mesh axis (libhpc_tpu.parallel.collectives).
 
 Public API:
@@ -11,7 +11,6 @@ Public API:
   tree_reduce_sum(x)   — explicit hierarchical 1024-fan-in reduction (parity
                          with the reference's multi-pass loop; same result as
                          jnp.sum but exercises the tiled path)
-  row_sum_pallas(x2d)  — Pallas row-wise reduction of a 2D array
 """
 
 from __future__ import annotations
@@ -20,10 +19,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from libhpc_tpu.ops._pallas_utils import LANE, cdiv, interpret_mode
+from libhpc_tpu.ops._util import cdiv
 
 FAN_IN = 1024  # same fan-in as the reference tree
 
@@ -58,30 +54,3 @@ def tree_reduce_sum(x):
         xp = jnp.zeros((n_pad,), x.dtype).at[:n].set(x)
         x = jnp.sum(xp.reshape(n_pad // FAN_IN, FAN_IN), axis=1)
     return x[0]
-
-
-def _row_sum_kernel(x_ref, o_ref):
-    o_ref[:] = jnp.sum(x_ref[:], axis=1, keepdims=True)
-
-
-@jax.jit
-def row_sum_pallas(x):
-    """Row-wise sum of a 2D (M, N) array, tiled over rows."""
-    m, n = x.shape
-    tile_m = 8
-    m_pad = cdiv(m, tile_m) * tile_m
-    n_pad = cdiv(n, LANE) * LANE
-    xp = jnp.zeros((m_pad, n_pad), x.dtype).at[:m, :n].set(x)
-    out = pl.pallas_call(
-        _row_sum_kernel,
-        grid=(m_pad // tile_m,),
-        in_specs=[
-            pl.BlockSpec((tile_m, n_pad), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec((tile_m, 1), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m_pad, 1), x.dtype),
-        interpret=interpret_mode(),
-    )(xp)
-    return out[:m, 0]

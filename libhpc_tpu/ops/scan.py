@@ -1,37 +1,19 @@
 """Exclusive / inclusive scans.
 
-TPU-native descendant of the reference's hierarchical 1024-fan-in exclusive
-scan (lib/gpu/radix_gpu/include/cuda_hierarchical_exclusive_scan_localT_1024.cuh,
-SURVEY.md §2.11c): upsweep tile scans + top-level scan + downsweep offset
-propagation.
-
-On TPU the Pallas grid executes *sequentially* on a core, so the whole
-upsweep/downsweep tree collapses into a single pass that keeps a running
-carry in SMEM — the idiomatic TPU formulation. Within a (8, 128) VMEM tile
-the scan is hierarchical exactly like the reference: lane-wise cumsum (VPU
-log-step shifts) composed with a sublane-level scan of row sums.
+Descendant of the reference's hierarchical 1024-fan-in exclusive scan
+(lib/gpu/radix_gpu/include/cuda_hierarchical_exclusive_scan_localT_1024.cuh,
+SURVEY.md §2.11c). XLA lowers `cumsum` to its own parallel scan on every
+backend, so the upsweep/downsweep tree is one library call here.
 
 Public API:
-  exclusive_scan(x)         — XLA fallback (jnp.cumsum based), any backend
-  exclusive_scan_pallas(x)  — tiled Pallas kernel, 1D f32/i32 input
+  exclusive_scan(x)  — exclusive prefix sum along the last axis
+  inclusive_scan(x)  — inclusive prefix sum along the last axis
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from libhpc_tpu.ops._pallas_utils import LANE, cdiv, interpret_mode, tile_cumsum
-
-SUBLANES = 8
-WIDE = 512              # lanes per row (4 lane-tiles); 8×512 = 4k elements
-TILE = SUBLANES * WIDE  # per grid step — wide rows keep the shift-add scan
-                        # static (fast Mosaic compiles) while amortizing the
-                        # sequential-grid step overhead
 
 
 @jax.jit
@@ -44,118 +26,3 @@ def exclusive_scan(x):
 @jax.jit
 def inclusive_scan(x):
     return jnp.cumsum(x, axis=-1)
-
-
-MXU_ROWS = 512          # rows per MXU-scan grid step (512×128 = 64k elems)
-
-
-def _scan_mxu_kernel(x_ref, u_ref, o_ref, carry_ref):
-    """One (MXU_ROWS, 128) f32 block per grid step.
-
-    The in-row prefix is a triangular matmul on the MXU — X @ U with U the
-    (128,128) inclusive upper-triangular ones matrix — the reference's
-    warp-level scan (cuda_hierarchical_exclusive_scan_localT_1024.cuh
-    upsweep) re-expressed as the one primitive the MXU is built for.
-    Precision.HIGHEST keeps f32 accumulation exact-to-rounding. Row-level
-    offsets ride a log-step sublane scan; the cross-block carry lives in
-    SMEM (the sequential TPU grid replaces the downsweep tree)."""
-    step = pl.program_id(0)
-
-    @pl.when(step == 0)
-    def _():
-        carry_ref[0, 0] = jnp.zeros((), jnp.float32)
-
-    x = x_ref[:]                                   # (MXU_ROWS, 128)
-    incl = jax.lax.dot_general(
-        x, u_ref[:], (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
-    row_tot_b = jnp.broadcast_to(incl[:, LANE - 1 : LANE], x.shape)
-    row_excl = tile_cumsum(row_tot_b, axis=0) - row_tot_b
-    carry = carry_ref[0, 0]
-    o_ref[:] = carry + row_excl + (incl - x)
-    carry_ref[0, 0] = carry + jnp.sum(x)
-
-
-@jax.jit
-def _exclusive_scan_mxu(x):
-    (n,) = x.shape
-    blk = MXU_ROWS * LANE
-    n_pad = max(blk, cdiv(n, blk) * blk)
-    xp = jnp.zeros((n_pad,), jnp.float32).at[:n].set(x)
-    xt = xp.reshape(n_pad // LANE, LANE)
-    u = jnp.triu(jnp.ones((LANE, LANE), jnp.float32))
-    out = pl.pallas_call(
-        _scan_mxu_kernel,
-        grid=(n_pad // blk,),
-        in_specs=[
-            pl.BlockSpec((MXU_ROWS, LANE), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((LANE, LANE), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((MXU_ROWS, LANE), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(xt.shape, jnp.float32),
-        scratch_shapes=[pltpu.SMEM((1, 1), jnp.float32)],
-        interpret=interpret_mode(),
-    )(xt, u)
-    return out.reshape(n_pad)[:n]
-
-
-def _scan_tile_kernel(x_ref, o_ref, carry_ref):
-    """One (SUBLANES, 128) block per grid step: an in-kernel fori_loop walks
-    8-row chunks (the proven Mosaic-compatible scan shape), carrying the
-    running prefix in a loop value; the cross-block carry lives in SMEM.
-    This is the reference's hierarchical upsweep/downsweep
-    (cuda_hierarchical_exclusive_scan_localT_1024.cuh) collapsed onto the
-    sequential TPU grid."""
-    step = pl.program_id(0)
-
-    @pl.when(step == 0)
-    def _():
-        carry_ref[0, 0] = jnp.zeros((), x_ref.dtype)
-
-    x = x_ref[0]                                   # (8, WIDE)
-    lane_inc = tile_cumsum(x, axis=1)              # within-row scan
-    # row-level scan: broadcast row totals to full lane width first —
-    # Mosaic rejects shift-concats on width-1 arrays
-    row_tot_b = jnp.broadcast_to(lane_inc[:, WIDE - 1 : WIDE], x.shape)
-    row_excl = tile_cumsum(row_tot_b, axis=0) - row_tot_b
-    carry = carry_ref[0, 0]
-    o_ref[0] = carry + row_excl + (lane_inc - x)
-    carry_ref[0, 0] = carry + jnp.sum(x)
-
-
-@partial(jax.jit, static_argnames=())
-def exclusive_scan_pallas(x):
-    """Tiled exclusive scan of a 1D array via Pallas.
-
-    f32 rides the MXU triangular-matmul kernel (HBM-bound, ~20x XLA
-    cumsum); integer dtypes use the exact shift-add kernel (the radix
-    pipeline requires bit-exact i32 offsets, which the MXU's f32
-    accumulator cannot guarantee past 2^24).
-
-    Pads to a block multiple (padding-invariant: zeros do not perturb the
-    prefix of valid elements).
-    """
-    if x.dtype == jnp.float32:
-        return _exclusive_scan_mxu(x)
-    (n,) = x.shape
-    n_pad = max(TILE, cdiv(n, TILE) * TILE)
-    xp = jnp.zeros((n_pad,), x.dtype).at[:n].set(x)
-    xt = xp.reshape(n_pad // TILE, SUBLANES, WIDE)
-    out = pl.pallas_call(
-        _scan_tile_kernel,
-        grid=(n_pad // TILE,),
-        in_specs=[
-            pl.BlockSpec((1, SUBLANES, WIDE), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec((1, SUBLANES, WIDE), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(xt.shape, x.dtype),
-        scratch_shapes=[pltpu.SMEM((1, 1), x.dtype)],
-        interpret=interpret_mode(),
-    )(xt)
-    return out.reshape(n_pad)[:n]

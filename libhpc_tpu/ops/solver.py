@@ -1,7 +1,7 @@
 """Iterative-solver building blocks: axpy/dot/norm + CG (BASELINE.json configs[2]).
 
 The solver loop is a `lax.while_loop` so the whole iteration compiles into
-one XLA program — no host round-trips per iteration (the TPU analog of the
+one XLA program — no host round-trips per iteration (the analog of the
 reference's fully-async release path within a radix round,
 cuda_radix_sort_v4.cu:104-221).
 

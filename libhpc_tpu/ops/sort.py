@@ -1,15 +1,15 @@
-"""Radix sort — the reference's flagship, re-expressed for TPU.
+"""Radix sort — the reference's flagship, re-expressed in JAX.
 
 The reference builds a 4-round × 8-bit LSD radix sort with a
 count → hierarchical-scan → rank-stable-scatter pipeline on GPU
 (lib/gpu/radix_gpu, SURVEY.md §3.1) and a two-level per-thread variant on CPU
 (lib/sort/radix_cpu/include/radix_sort_cpu.hpp:254-322, §3.2).
 
-On TPU the performance-correct answer is different: XLA's `sort` is itself a
-heavily tuned on-chip sort, and per-element scatter (the GPU pipeline's hot
-kernel) is the one primitive TPU hardware does not like. So:
+The production path is XLA's own sort: on the GPU, XLA hands a large
+1-D key (or key-index) sort to a library radix sort, which is the
+reference's pipeline as a tuned library call. So:
 
-  sort_u32 / radix_sort  — production path: `jax.lax.sort` (optimal on TPU)
+  sort_u32 / radix_sort  — production path: `jax.lax.sort`
   radix_sort_pipeline    — the count→scan→scatter pipeline built from this
                            package's histogram/scan/segment primitives, with
                            the same two-level (tile-local + global-base)
@@ -31,14 +31,14 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from libhpc_tpu.ops._pallas_utils import cdiv
+from libhpc_tpu.ops._util import cdiv
 
 TILE = 2048  # elements per tile in the pipeline variant
 
 
 @jax.jit
 def sort_u32(x):
-    """Sort uint32 ascending — production path (XLA on-chip sort)."""
+    """Sort uint32 ascending — production path (XLA sort)."""
     return jax.lax.sort(x.astype(jnp.uint32))
 
 
@@ -170,7 +170,7 @@ def bitonic_sort(x):
     """Full bitonic sort network in vectorized XLA ops.
 
     Every compare-exchange stage at distance d is a reshape to
-    (n/2d, 2, d) + min/max + direction select — pure VPU work with zero
+    (n/2d, 2, d) + min/max + direction select — pure elementwise work with zero
     gather/scatter (the butterfly partner i XOR d is reached by layout, the
     same trick as the reference's warp-shuffle exchanges). log²(n)/2 stages,
     unrolled at trace time; pads to a power of two with UINT32_MAX.

@@ -1,5 +1,4 @@
-"""Block SpGEMM — C = A @ B on 8×8 blocks, the MXU redesign (VERDICT r4
-next-round #4).
+"""Block SpGEMM — C = A @ B on 8×8 blocks.
 
 The scalar windowed SpGEMM (ops/spgemm.py:spgemm_windowed) is
 gather/scatter-bound at ~0.02 G products/s device-side: every scalar
@@ -10,8 +9,8 @@ block level
 
     C[i,j] += A[i,k] @ B[k,j]          (8×8 · 8×8 block matmuls)
 
-and the repo's own flagship insight applies — 8×8 dense tiles are what
-the TPU is built for. The structure pass shrinks 64× (symbolic on block
+and the repo's own flagship insight applies — 8×8 dense tiles instead of
+scalars. The structure pass shrinks 64× (symbolic on block
 indices), and the numeric pass becomes batched dense matmuls + one
 segment-sum, no sorting network, no per-scalar gathers.
 
@@ -25,9 +24,9 @@ the custom flagship (lib/gpu/radix_gpu/src/cuda_radix_sort_v4.cu:193-223):
      offset arithmetic, no Python loop over k — then sort pairs by
      output block (i,j) and assign contiguous segment ids.
   numeric (device, ONE jitted program):
-     gather the paired blocks, batched 8×8 matmuls (dot_general with a
-     batch dimension — lowered to the MXU), segment-sum the partial
-     products into C's blocks (segments pre-sorted by the host).
+     gather the paired blocks, batched 8×8 block products as one fused
+     f32 multiply-sum (exact f32 arithmetic, no TF32), segment-sum the
+     partial products into C's blocks (segments pre-sorted by the host).
 
 Memory: the numeric pass is chunked over pairs (PAIR_CHUNK) so device
 memory stays O(chunk + nnzb_C) at any expansion size; chunk boundaries
@@ -91,63 +90,21 @@ def _symbolic(ai, ap, bi, bp, nbc_out):
     return ia, ib, seg, uniq // nbc_out, uniq % nbc_out
 
 
-def _perm_mats(bsz: int):
-    """Constant one-hot lane-permutation matrices for the flattened
-    block product: for each contraction index j,
+@partial(jax.jit, static_argnames=("n_out", "bsz"))
+def _numeric_chunk(Ab2, Bb2, ia, ib, seg, acc, n_out: int, bsz: int = 8):
+    """One pair chunk: gather → batched b×b block products → segment-sum.
 
-        (a @ Ma_j)[p, b*i+k] = a[p, b*i+j]      (column-broadcast of A)
-        (b @ Mb_j)[p, b*i+k] = b[p, b*j+k]      (row-tile of B)
-
-    so prod = Σ_j (a @ Ma_j) * (b @ Mb_j) is the b×b block matmul with
-    every array staying (P, b²)-shaped."""
-    bb = bsz * bsz
-    Ma = np.zeros((bsz, bb, bb), np.float32)
-    Mb = np.zeros((bsz, bb, bb), np.float32)
-    for j in range(bsz):
-        for i in range(bsz):
-            for k in range(bsz):
-                Ma[j, bsz * i + j, bsz * i + k] = 1.0
-                Mb[j, bsz * j + k, bsz * i + k] = 1.0
-    return Ma, Mb
-
-
-@partial(jax.jit, static_argnames=("n_out", "mxu", "bsz"))
-def _numeric_chunk(Ab2, Bb2, ia, ib, seg, acc, n_out: int, mxu: bool,
-                   bsz: int = 8):
-    """One pair chunk: gather → blocked matmul → segment-sum.
-
-    Every device array stays FLATTENED (·, b²): any rank-3 (·, b, b)
-    array on this backend pads each block's trailing dim to 128 lanes
-    (16x memory — ResourceExhausted at ~1M pairs) and its lowering
-    overflows an internal uint32 offset table past ~100k blocks
-    (`Check failed: entries[i] <= uint32_max`, round 5). The b×b block
-    product runs as 2·b one-hot (b², b²) lane-permutation matmuls — an
-    exact permutation, MXU-contracted over the 64-lane axis."""
-    a = Ab2[ia]                                 # (P, b*b)
-    b = Bb2[ib]
-    Ma, Mb = _perm_mats(bsz)
-    prec = jax.lax.Precision.HIGHEST   # one-hot matmuls must stay exact
-    terms = []
-    for j in range(bsz):
-        if mxu:
-            aj = jnp.dot(a, jnp.asarray(Ma[j]), precision=prec)
-            bj = jnp.dot(b, jnp.asarray(Mb[j]), precision=prec)
-        else:
-            # static-index lane gathers (no MXU): same permutation
-            idx_a = np.nonzero(Ma[j])[0][np.argsort(np.nonzero(Ma[j])[1])]
-            idx_b = np.nonzero(Mb[j])[0][np.argsort(np.nonzero(Mb[j])[1])]
-            aj = jnp.take(a, jnp.asarray(idx_a), axis=1)
-            bj = jnp.take(b, jnp.asarray(idx_b), axis=1)
-        terms.append(aj * bj)
-    prod = terms[0]
-    for t in terms[1:]:
-        prod = prod + t
+    Blocks travel FLATTENED (·, b²); the product
+    prod[p, i, k] = Σ_j a[p, i, j] · b[p, j, k] is one broadcast
+    multiply-sum that XLA fuses with the gathers."""
+    a = Ab2[ia].reshape(-1, bsz, bsz, 1).astype(jnp.float32)
+    b = Bb2[ib].reshape(-1, 1, bsz, bsz).astype(jnp.float32)
+    prod = jnp.sum(a * b, axis=2).reshape(-1, bsz * bsz)
     return acc + jax.ops.segment_sum(
         prod, seg, num_segments=n_out, indices_are_sorted=True)
 
 
-def spgemm_bsr(A: BSR, B: BSR, mxu: bool = True,
-               pair_chunk: int = PAIR_CHUNK) -> BSR:
+def spgemm_bsr(A: BSR, B: BSR, pair_chunk: int = PAIR_CHUNK) -> BSR:
     """C = A @ B for BSR matrices with equal block size.
 
     Host symbolic pass (numpy — setup-class, like every container build),
@@ -173,10 +130,7 @@ def spgemm_bsr(A: BSR, B: BSR, mxu: bool = True,
                    indptr=jnp.zeros((A.shape[0] // bsz + 1,), jnp.int32),
                    shape=(A.shape[0], B.shape[1]))
     acc = jnp.zeros((n_out, bsz * bsz), jnp.float32)
-    # flatten via HOST: a device reshape (or any op) consuming a rank-3
-    # (nblocks, b, b) array past ~100k blocks crashes the TPU lowering
-    # (uint32 offset-table overflow — the per-block (8,8) tail pads to an
-    # (8,128) tile internally); the 2-D upload lowers cleanly
+    # blocks travel flattened (nblocks, b*b): one contiguous row per block
     Ab2 = jnp.asarray(np.asarray(A.blocks).reshape(-1, bsz * bsz))
     Bb2 = Ab2 if B.blocks is A.blocks else \
         jnp.asarray(np.asarray(B.blocks).reshape(-1, bsz * bsz))
@@ -188,17 +142,15 @@ def spgemm_bsr(A: BSR, B: BSR, mxu: bool = True,
                              jnp.asarray(ia[p0:p1]),
                              jnp.asarray(ib[p0:p1]),
                              jnp.asarray(seg[p0:p1]),
-                             acc, n_out=n_out, mxu=mxu, bsz=bsz)
+                             acc, n_out=n_out, bsz=bsz)
     indptr = np.zeros(A.shape[0] // bsz + 1, np.int64)
     np.add.at(indptr, out_r + 1, 1)
     indptr = np.cumsum(indptr)
     # assemble the rank-3 blocks on the HOST and KEEP them host-side
-    # (numpy leaf): device rank-3 (n_out, b, b) arrays at ~1M blocks
-    # materialize a 16x-padded layout and their transfer program aborts
-    # the TPU compiler (uint32 offset-table overflow) — and the result
-    # crosses to the host for any real consumer (scipy gate, file
-    # output) anyway. Callers needing device blocks should re-pack
-    # (e.g. SBELL.from_scipy(C.to_scipy()) for a follow-up SpMV).
+    # (numpy leaf): the result crosses to the host for any real consumer
+    # (scipy gate, file output) anyway. Callers needing device blocks
+    # should re-pack (e.g. SBELL.from_scipy(C.to_scipy()) for a
+    # follow-up SpMV).
     blocks = np.asarray(acc).reshape(-1, bsz, bsz).astype(A.blocks.dtype)
     return BSR(blocks=blocks,
                indices=jnp.asarray(out_c, jnp.int32),

@@ -1,7 +1,7 @@
 """Sparse × dense (tall-skinny) matrix products — SpMM.
 
 BASELINE.json configs[2]: sparse × dense with ~64 columns. The dense
-right-hand side makes this MXU-friendly: each gathered row of B is a
+right-hand side amortizes index traffic: each gathered row of B is a
 (k, ncols) dense tile and the segmented reduction amortizes index traffic
 over ncols columns.
 """
@@ -26,14 +26,12 @@ def csr_spmm(csr, B):
 def ell_spmm(ell, B):
     """Y = A @ B, A ELL (m×n) with k slots/row, B dense (n, c).
 
-    Gathers B into a (m, k, c) brick and contracts k — a dense einsum the
-    MXU can tile when c ≥ 64.
+    Gathers B into a (m, k, c) brick and contracts k — a dense einsum.
     """
     gB = B[ell.cols]                         # (m, k, c)
-    # precision="highest": the MXU's default bf16 pass loses ~1e-2 rel on
-    # standard-normal data — fails the 2e-3 correctness gate (same fix as
-    # the SBELL far path, ops/spmv.py). These ops are gather/bandwidth
-    # bound, so the extra MXU passes are free.
+    # precision="highest": a float32 contraction must not run as TF32 /
+    # bf16 passes (~1e-2 rel error on standard-normal data). These ops
+    # are gather/bandwidth bound, so full f32 costs nothing.
     return jnp.einsum(
         "mk,mkc->mc", ell.vals, gB, preferred_element_type=ell.vals.dtype,
         precision="highest",
@@ -44,7 +42,7 @@ def ell_spmm(ell, B):
 def bsr_spmm(bsr, B):
     """Y = A @ B, A BSR (m×n) with b×b blocks, B dense (n, c).
 
-    Pure MXU: (nblocks, b, b) × (nblocks, b, c) batched matmul + block-row
+    (nblocks, b, b) × (nblocks, b, c) batched matmul + block-row
     segment sum.
     """
     b = bsr.b

@@ -9,14 +9,17 @@ Three compute paths, chosen by storage format:
   ell_spmv(ell, x)  — dense-rectangle path: x[cols] is a dense gather of a
                       (nrows, k) index plane, the reduce a dense axis-sum.
                       Best when row lengths are regular (Poisson, stencils).
-  bsr_spmv(bsr, x)  — MXU path: batched b×b block-dots + block-row segment
+  bsr_spmv(bsr, x)  — block path: batched b×b block-dots + block-row segment
                       sum (BASELINE.json configs[1], 8×8 SuiteSparse blocks).
 
 The reference has no SpMV (it is a primitives library); these ops are the
-designated TPU re-expression of its sparse-grid + SIMD-stencil capabilities
+designated re-expression of its sparse-grid + SIMD-stencil capabilities
 per BASELINE.json. Reduction structure descends from the reference's
-count→scan→scatter skeleton (SURVEY.md §3.2) with scatter replaced by
-segment-sum — scatter is the one primitive TPUs dislike.
+count→scan→scatter skeleton (SURVEY.md §3.2) with the scatter expressed as
+a segment-sum.
+
+Every float32 contraction names precision HIGHEST, so a GPU never runs it
+in TF32.
 """
 
 from __future__ import annotations
@@ -42,13 +45,14 @@ def ell_spmv(ell, x):
 
 @jax.jit
 def bsr_spmv(bsr, x):
-    """y = A @ x for BSR A via batched block-dots on the MXU."""
+    """y = A @ x for BSR A via batched block-dots."""
     b = bsr.b
     xb = x.reshape(-1, b)                       # (n_block_cols, b)
     gx = xb[bsr.indices]                        # (nblocks, b)
     prod = jnp.einsum(
         "nij,nj->ni", bsr.blocks, gx,
         preferred_element_type=bsr.blocks.dtype,
+        precision=jax.lax.Precision.HIGHEST,
     )
     yb = jax.ops.segment_sum(
         prod, bsr.block_row_of_block(), num_segments=bsr.n_block_rows,
@@ -61,39 +65,16 @@ def bsr_spmv(bsr, x):
 def bell_spmv(bell, x):
     """y = A @ x for BELL A — the unstructured fast path.
 
-    One row-gather of x per block (the measured per-row gather cost is what
-    bounds unstructured SpMV, PERF_NOTES.md) and a dense-axis VPU reduction;
-    no scatter/segment_sum anywhere (padding blocks multiply to zero)."""
+    One row-gather of x per block and a dense-axis reduction; no
+    scatter/segment_sum anywhere (padding blocks multiply to zero)."""
     b = bell.b
     xb = x.reshape(-1, b)                         # (n_block_cols, b)
     g = xb[bell.indices]                          # (nbr, K, b) row-gather
     # contraction over (K, j): blocks (nbr,K,b,b) . g (nbr,K,b) -> (nbr,b)
     yb = jnp.einsum("rkij,rkj->ri", bell.blocks, g,
-                    preferred_element_type=bell.blocks.dtype)
+                    preferred_element_type=bell.blocks.dtype,
+                    precision=jax.lax.Precision.HIGHEST)
     return yb.reshape(-1)
-
-
-def far_spmv(far, x):
-    """y = A @ x for a FarBlocks block-COO set (sparse/sbell.py).
-
-    One x row-gather per stored block (the only per-block cost on TPU,
-    PERF_NOTES.md) + an (nf, b) scatter-add over the touched block-rows —
-    work proportional to n_far, never to the matrix row count."""
-    b = far.blocks.shape[-1]
-    nbr = far.shape[0] // b
-    xb = x.reshape(-1, b)
-    g = xb[far.cols]                              # (nf, b) row-gather
-    # precision="highest": same reason as the far kernel's one-hot dot
-    # (ops/far_pallas.py) — the
-    # MXU's default bf16 pass fails the 2e-3 gate, and this path is still
-    # reachable (grouped-fallback stripes, group_far=False dist shards)
-    # preferred f32: the bf16-value variant (SBELL.astype_values) must
-    # still accumulate in f32
-    yb = jnp.einsum("nij,nj->ni", far.blocks, g,
-                    preferred_element_type=jnp.float32,
-                    precision="highest")
-    out = jnp.zeros((nbr, b), yb.dtype).at[far.rows].add(yb)
-    return out.reshape(-1)
 
 
 @jax.jit
@@ -105,7 +86,7 @@ def coo_spmv(coo, x):
 # dia_spmv unrolls one HLO slice+add pair per diagonal; past this many
 # offsets the program blows up (O(n_diag) ops, unbounded compile time on a
 # quasi-structured matrix) — callers should convert to BandedHybrid or
-# SBELL instead (VERDICT r1 weak #7).
+# SBELL instead.
 MAX_DIA_OFFSETS = 96
 
 
@@ -115,7 +96,7 @@ def _guard_dia(dia):
             f"dia_spmv: {len(dia.offsets)} diagonal offsets exceeds the "
             f"compile-safety cap of {MAX_DIA_OFFSETS}; this matrix is only "
             "quasi-structured — use hybrid_spmv (RCM band + ELL rest) or "
-            "the SBELL Pallas path (ops/spmv_pallas.py) instead.")
+            "the SBELL path (ops/spmv_pallas.py) instead.")
 
 
 @jax.jit
@@ -126,9 +107,7 @@ def dia_spmv(dia, x):
       y[j - o] += data[d, j] * x[j]   for valid columns j
     expressed as PAD + ADD of the sliced products (not `.at[].add`):
     dynamic-update-slice chains make XLA re-read and re-write the full y
-    per diagonal — measured 5x traffic, ~380 GB/s achieved vs the
-    ~30 MB single-pass model on Poisson-1024² (round 4). Pad+add fuses
-    into one elementwise pass.
+    per diagonal; pad+add fuses into one elementwise pass.
     """
     _guard_dia(dia)
     m, n = dia.shape

@@ -1,45 +1,34 @@
-"""Pallas striped-BELL SpMV — the unstructured fast path (VERDICT r1 #1).
+"""Striped block-ELL (SBELL) SpMV: a Pallas kernel through Triton, and the
+plain XLA form of the same product.
 
-y = A @ x for an SBELL matrix (sparse/sbell.py, v4 row-slice layout):
+y = A @ x for an SBELL matrix (sparse/sbell.py). Vectors live in the
+GUARDED PANE layout x3[p, j, l] = x[1024 p + 8 l + j], shape
+(n_panes + W_PANES - 1, 8, 128) with zero guard panes at the end; the
+output (n_stripes + W_PANES - 1, 8, 128) follows the same convention
+over y, so a square operator's output feeds the next matvec directly.
 
-  NEAR kernel (one fused pallas_call):
-    - the (8*64, 128) value planes + (8, 128) meta rows stream HBM->VMEM
-      through the Pallas grid pipeline (auto double-buffered) — the
-      roofline term;
-    - x stays VMEM-resident as (n_panes+1, 8, 128) block-transposed panes;
-      each tile's x-blocks are fetched with TWO static 128-lane dynamic
-      shuffles (`take_along_axis(axis=1)`) + select — the layout co-design
-      that replaces XLA's 0.35 G rows/s HBM row-gather;
-    - products are 8 VPU multiply-adds broadcasting one gathered x-entry
-      row per block column index j;
-    - because tile slot i IS local block-row i (v4), the product block
-      pacc[i, slot] is already y[stripe*1024 + slot*8 + i]: the
-      accumulation is a plain dynamic-offset add into the VMEM-resident
-      (n_stripes*8, 128) output. The v1-v3 one-hot MXU row-scatter (the
-      TPU stand-in for the reference's rank-stable scatter kernels,
-      lib/gpu/radix_gpu/include/cuda_radix_scatter.cuh:104-180) is gone —
-      it made the kernel compute-bound at 134 ns/tile vs 55 ns of DMA.
+  kernel  (`impl="kernel"`, one pallas_call, backend="triton"): the grid
+          is (guarded stripes, n_split). Program (s, k) walks tiles
+          tptr[s] + k, tptr[s] + k + n_split, ... of its stripe; per tile
+          it loads the (64, 128) value plane as eight coalesced (8, 128)
+          rows, gathers the tile's eight (128,) x rows straight from
+          device memory (x is a few MB, L2-resident; the pane layout
+          makes consecutive slots near-contiguous), converts bf16 values
+          in registers and accumulates f32 in registers. It writes its
+          (8, 128) output block once. Stripes are split over n_split
+          programs when there are too few stripes to fill the card; the
+          partial planes are then summed by one XLA reduction (a second
+          pass, deterministic — no atomics).
+  xla     (`impl="xla"`): gather + per-tile 8-term multiply-sum +
+          sorted segment-sum over stripes. Runs on any backend and is
+          the oracle the kernel is tested against.
 
-  FAR part: the scattered tail of blocks goes through the XLA block-COO
-  row-gather path (ops/spmv.py:far_spmv) and is added to y — measured
-  faster than any in-kernel wide-window scheme (dynamic pane loops cost
-  65 ns/iteration; see sparse/sbell.py docstring), and proportional to
-  the far-block count.
+The far set (sparse/sbell.py:FarBlocks) goes through one XLA gather +
+multiply-sum + scatter-add in the same pane layout in both forms.
 
-VMEM budget: 2x(TPB*65) KB value+meta stream + 4(n_panes+1) KB x +
-4*n_stripes KB y. The kernels are compiled with a RAISED Mosaic scoped-
-vmem limit (LIBHPC_SBELL_VMEM_LIMIT, default 100 MB — v5e has 128 MB of
-physical VMEM; XLA's 16 MB default scoped limit is a compiler knob, not
-hardware: round-5 measured the resident kernel correct at 64 MB resident
-and 800 GB/s model-rate at the 100M-nnz configs[4] scale, where the old
-14 MB cap forced a 2-chunk run at HALF that rate — BENCH_r04's 0.52
-fraction attributed). Matrices whose x-panes + output exceed the cap
-(LIBHPC_SBELL_VMEM_CAP, default 96 MB) are still automatically
-row-chunked (VERDICT r2 #5): stripes are grouped so each group's pane
-window + output slice fit the cap, and one pallas_call runs per group
-(uniform shapes — single compilation). The chunk plan needs host-side
-pane metadata, so the chunked path cannot be called under jit (the
-resident path can).
+`impl=None` takes the kernel on a GPU and the XLA form elsewhere. The
+kernel compiles for CUDA GPUs only: called without `interpret=True` on
+another backend it raises (tests run it in the Pallas interpreter).
 """
 
 from __future__ import annotations
@@ -49,327 +38,107 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from libhpc_tpu.ops._pallas_utils import interpret_mode
-from libhpc_tpu.sparse.sbell import (B, LANE, PANE_COLS, SBELL, STRIPE_ROWS,
-                                     TPB, VROWS, W_PANES)
+from libhpc_tpu.sparse.sbell import (B, LANE, PANE_COLS, SBELL, VROWS,
+                                     W_PANES)
 
-
-def _kernel(pane_ref, sid_ref, v_ref, m_ref, x_ref, o_ref, *, tpb: int):
-    g = pl.program_id(0)
-
-    @pl.when(g == 0)
-    def _():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    for t in range(tpb):
-        base = t * VROWS
-        col = m_ref[t:t + 1, :]                                  # (1,128)
-        p = pane_ref[g * tpb + t]
-        sid = sid_ref[g * tpb + t]
-
-        # static two-pass gather over the tile's <=2 spanned panes
-        idx = jnp.broadcast_to(col & (LANE - 1), (B, LANE))
-        gx = jnp.take_along_axis(x_ref[p], idx, axis=1)
-        for w in range(1, W_PANES):
-            sel = jnp.broadcast_to((col >> 7) == w, (B, LANE))
-            gw = jnp.take_along_axis(x_ref[p + w], idx, axis=1)
-            gx = jnp.where(sel, gw, gx)
-
-        # products: pacc[i, slot] = sum_j V[8j+i, slot] * x_j[slot]
-        # (.astype: the bf16-value variant converts in-register and still
-        # accumulates f32 — the value stream is the only thing halved)
-        pacc = v_ref[base:base + B, :].astype(jnp.float32) * gx[0:1, :]
-        for j in range(1, B):
-            pacc = pacc + v_ref[base + B * j:base + B * (j + 1), :] \
-                .astype(jnp.float32) * gx[j:j + 1, :]
-
-        # slot i == local block-row i: pacc IS the output block
-        o_ref[pl.ds(sid * B, B), :] = o_ref[pl.ds(sid * B, B), :] + pacc
+# programs the split aims for: a few per SM of a 132-SM card, so that
+# stripes with few tiles (cant: ~60 stripes) still fill the card
+TARGET_PROGRAMS = 512
 
 
-def _ranged_kernel(off_ref, slo_ref, plo_ref, pane_ref, sid_ref,
-                   v_ref, m_ref, x_any, o_ref, xs, sem, *, spc: int,
-                   win: int, tpb: int):
-    """Chunked variant of _kernel, ONE pallas_call for all chunks: grid is
-    (n_chunks, gsteps); chunk c walks tile blocks [off[c], off[c]+gsteps)
-    of the GLOBAL tile stream (prefetch-scalar-driven index_map — zero
-    operand copies, one compiled kernel), DMAs its x pane window
-    [plo[c], plo[c]+win) from HBM into scratch at its first step, and
-    predicates off boundary-overlap / padding tiles. o_ref is the chunk's
-    own output block."""
-    c = pl.program_id(0)
-    g = pl.program_id(1)
-
-    @pl.when(g == 0)
-    def _():
-        o_ref[:] = jnp.zeros_like(o_ref)
-        cp = pltpu.make_async_copy(
-            x_any.at[pl.ds(plo_ref[c], win)], xs, sem)
-        cp.start()
-        cp.wait()
-
-    for t in range(tpb):
-        base = t * VROWS
-        gt = (off_ref[c] + g) * tpb + t
-        col = m_ref[t:t + 1, :]
-        sid = sid_ref[gt] - slo_ref[c]
-        p_raw = pane_ref[gt] - plo_ref[c]
-        valid = (sid >= 0) & (sid < spc) & (p_raw >= 0) \
-            & (p_raw < win - (W_PANES - 1))
-        p = jnp.where(valid, p_raw, 0)
-        sid = jnp.where(valid, sid, 0)
-
-        # predicated arithmetic, not a branch: invalid (boundary-overlap
-        # or padding) tiles read pane 0 and accumulate an all-zero block
-        # into stripe 0 — one extra multiply per tile instead of a
-        # pipeline-flushing per-tile conditional
-        idx = jnp.broadcast_to(col & (LANE - 1), (B, LANE))
-        gx = jnp.take_along_axis(xs[p], idx, axis=1)
-        for w in range(1, W_PANES):
-            sel = jnp.broadcast_to((col >> 7) == w, (B, LANE))
-            gw = jnp.take_along_axis(xs[p + w], idx, axis=1)
-            gx = jnp.where(sel, gw, gx)
-        gx = gx * valid.astype(jnp.float32)
-        pacc = v_ref[base:base + B, :].astype(jnp.float32) * gx[0:1, :]
-        for j in range(1, B):
-            pacc = pacc + v_ref[base + B * j:base + B * (j + 1), :] \
-                .astype(jnp.float32) * gx[j:j + 1, :]
-        o_ref[0, pl.ds(sid * B, B), :] = \
-            o_ref[0, pl.ds(sid * B, B), :] + pacc
+def n_split_for(sb: SBELL) -> int:
+    """Programs per stripe: enough to reach TARGET_PROGRAMS, never more
+    than the mean tiles per stripe (static: from shapes only)."""
+    per_stripe = -(-sb.n_tiles // max(sb.n_stripes, 1))
+    want = -(-TARGET_PROGRAMS // sb.n_guarded)
+    return max(1, min(want, per_stripe))
 
 
-@partial(jax.jit, static_argnums=(1, 2, 3, 4))
-def _sbell_call(args, n_tiles, n_stripes, n_panes, tpb):
-    pane, sid, vflat, meta, x3 = args
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_tiles // tpb,),
-        in_specs=[
-            pl.BlockSpec((tpb * VROWS, LANE), lambda g, *_: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tpb, LANE), lambda g, *_: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),      # x panes, resident
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-    )
-    # W_PANES-1 zero GUARD stripes ride at the end of the output so a
-    # square chain can feed it straight back as the next guarded x panes
-    # with ZERO wrapper ops (they are zero-initialized, never written)
-    return pl.pallas_call(
-        partial(_kernel, tpb=tpb),
-        out_shape=jax.ShapeDtypeStruct(
-            ((n_stripes + W_PANES - 1) * B, LANE), jnp.float32),
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT),
-        interpret=interpret_mode(),
-    )(pane, sid, vflat, meta, x3)
+def _kernel(tptr_ref, pane_ref, meta_ref, v_ref, x_ref, o_ref, *,
+            n_split: int):
+    s = pl.program_id(0)
+    k = pl.program_id(1)
+    t0 = tptr_ref[s]
+    n_it = jnp.maximum((tptr_ref[s + 1] - t0 - k + n_split - 1) // n_split,
+                       0)
+
+    def tile(it, acc):
+        t = t0 + k + it * n_split
+        c = pane_ref[t] * LANE + meta_ref[t, :]          # (128,) block col
+        base = (c >> 7) * PANE_COLS + (c & (LANE - 1))   # x3 flat offset
+        for j in range(B):
+            xj = x_ref[base + j * LANE]                   # (128,) gather
+            vj = v_ref[pl.ds(t * VROWS + j * B, B), :]    # (8, 128) rows
+            acc = acc + vj.astype(jnp.float32) * xj[None, :]
+        return acc
+
+    acc = jax.lax.fori_loop(0, n_it, tile, jnp.zeros((B, LANE), jnp.float32))
+    o_ref[pl.ds((k * pl.num_programs(0) + s) * B, B), :] = acc
 
 
-# Mosaic scoped-vmem limit the kernels compile with. The 16 MB toolchain
-# default (which failed a 633M-nnz compile at 49.9 MB resident in r2 and
-# forced the 14 MB chunking cap through r4) is a compiler knob — v5e has
-# 128 MB physical VMEM, and CompilerParams(vmem_limit_bytes=100MB) runs
-# the resident kernel correct at 64 MB resident (round 5,
-# scripts/exp_r5_vmem.py: 8M rows / 395.7M nnz, 134 Gnnz/s).
-VMEM_LIMIT = int(__import__("os").environ.get(
-    "LIBHPC_SBELL_VMEM_LIMIT", str(100 * 1024 * 1024)))
-
-# resident x-panes + output budget (bytes); beyond it sbell_spmv
-# row-chunks automatically. Defaults to VMEM_LIMIT minus a 4 MB margin
-# for the double-buffered value/meta stream + scratch.
-VMEM_CAP = int(__import__("os").environ.get(
-    "LIBHPC_SBELL_VMEM_CAP", str(VMEM_LIMIT - 4 * 1024 * 1024)))
-
-
-def _resident_bytes(n_stripes: int, n_panes: int) -> int:
-    """VMEM held by the resident x panes + output for one kernel call."""
-    return ((n_panes + W_PANES - 1) * B * LANE + n_stripes * B * LANE) * 4
-
-
-def _worst_chunk_bytes(sid_np, pane_np, n_stripes: int, spc: int):
-    """(worst-group VMEM bytes, worst group index) for stripe groups of
-    size spc: per-group pane window + double-buffered output slice."""
-    import numpy as np
-
-    n_grp = -(-n_stripes // spc)
-    worst, worst_g = 0, 0
-    for g in range(n_grp):
-        s_lo, s_hi = g * spc, min((g + 1) * spc, n_stripes)
-        sel = (sid_np >= s_lo) & (sid_np < s_hi)
-        if sel.any():
-            win = int(pane_np[sel].max() - pane_np[sel].min()) + W_PANES
-        else:
-            win = W_PANES
-        # the per-chunk output block double-buffers when its index
-        # changes across the chunk axis — budget it twice
-        need = (win + 2 * (spc + W_PANES - 1)) * B * LANE * 4
-        if need > worst:
-            worst, worst_g = need, g
-    return worst, worst_g
-
-
-def _chunk_plan(sb: SBELL, force_spc: int | None = None):
-    """Host-side stripe grouping so each group fits VMEM_CAP (cached).
-
-    Returns (stripes_per_chunk, win_panes, gsteps, bounds) where bounds is
-    a tuple of (g0, stripe_lo, pane_lo) per group — uniform grid-step
-    count and window width so every group reuses ONE compiled kernel.
-    force_spc pins the stripes-per-chunk (the distributed builder needs a
-    uniform value across shards, parallel/dist_sbell.py)."""
-    import numpy as np
-
-    cached = getattr(sb, "_chunk_plan_cache", None)
-    if cached is not None and force_spc is None:
-        return cached
-    try:
-        pane_np = np.asarray(sb.pane)
-        sid_np = np.asarray(sb.sid)
-    except Exception as e:  # pragma: no cover — traced under jit
-        raise ValueError(
-            "sbell_spmv: matrix exceeds the VMEM budget "
-            f"({VMEM_CAP} B) and the chunked fallback needs host-side "
-            "pane metadata — call it outside jit (or pass a precomputed "
-            "chunk_plan, see _chunk_plan), or raise "
-            "LIBHPC_SBELL_VMEM_CAP") from e
-
-    # true tile count: real tiles are stripe-major (sid non-decreasing);
-    # the global TPB-padding tail restarts at sid 0 — the only decrease.
-    # (an all-stripe-0 matrix has no decrease; its padding tiles are inert
-    # in group 0 anyway: zero values, sid 0.)
-    dec = np.flatnonzero(np.diff(sid_np.astype(np.int64)) < 0)
-    n_true = int(dec[-1]) + 1 if dec.size else len(sid_np)
-    sid_np = sid_np[:n_true]
-    pane_np = pane_np[:n_true]
-
-    # greedy stripe grouping: uniform stripe count chosen so the WORST
-    # group's pane window + output slice fits the cap
-    if force_spc is not None:
-        spc = force_spc
-    else:
-        spc = sb.n_stripes
-        while True:
-            worst, worst_g = _worst_chunk_bytes(sid_np, pane_np,
-                                                sb.n_stripes, spc)
-            if worst <= VMEM_CAP:
-                break
-            if spc == 1:
-                # VERDICT r3 #7: a single stripe's pane window alone busts
-                # the cap — fail clearly instead of letting Mosaic die on
-                # an oversized scratch allocation downstream
-                raise ValueError(
-                    f"sbell_spmv: stripe {worst_g} alone needs {worst} B "
-                    f"of VMEM (pane window + output) but "
-                    f"LIBHPC_SBELL_VMEM_CAP is {VMEM_CAP} B; the matrix "
-                    "is too wide-scattered for the chunked near kernel — "
-                    "rebuild with a smaller W_PANES spread (more blocks "
-                    "route to the far path) or raise the cap")
-            spc //= 2
-    n_grp = -(-sb.n_stripes // spc)
-    G = sb.n_tiles // sb.tpb
-    win_panes = W_PANES
-    raw = []
-    for g in range(n_grp):
-        s_lo, s_hi = g * spc, min((g + 1) * spc, sb.n_stripes)
-        sel = (sid_np >= s_lo) & (sid_np < s_hi)
-        if sel.any():
-            t0, t1 = int(np.flatnonzero(sel)[0]), int(
-                np.flatnonzero(sel)[-1]) + 1
-            p_lo = int(pane_np[sel].min())
-            win_panes = max(win_panes,
-                            int(pane_np[sel].max()) - p_lo + W_PANES)
-        else:
-            t0 = t1 = 0
-            p_lo = 0
-        raw.append((t0, t1, s_lo, p_lo))
-    # grid-step-aligned chunk ranges: every chunk runs the same number of
-    # grid steps over the GLOBAL tile stream (boundary overlap tiles are
-    # predicated off in-kernel), so one compiled kernel serves all chunks
-    # and no operand is ever sliced-and-padded (round-3: those pad copies
-    # doubled the 79M-nnz chunked traffic)
-    tpb = sb.tpb
-    gsteps = max((-(-t1 // tpb)) - (t0 // tpb)
-                 for t0, t1, _, _ in raw) or 1
-    gsteps = min(gsteps, G)
-    bounds = []
-    for (t0, t1, s_lo, p_lo) in raw:
-        g0 = min(max(t0 // tpb, 0), G - gsteps)
-        bounds.append((g0, s_lo, p_lo))
-    plan = (spc, win_panes, gsteps, tuple(bounds))
-    if force_spc is None:
-        object.__setattr__(sb, "_chunk_plan_cache", plan)
-    return plan
-
-
-@partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
-def _sbell_call_ranged(args, n_chunks, gsteps, spc, win, tpb):
-    off, slo, plo, pane, sid, vflat, meta, x3p = args
-    orows = (spc + W_PANES - 1) * B
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=(n_chunks, gsteps),
-        in_specs=[
-            pl.BlockSpec((tpb * VROWS, LANE),
-                         lambda c, g, off, *_: (off[c] + g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tpb, LANE),
-                         lambda c, g, off, *_: (off[c] + g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),   # x panes stay in HBM
-        ],
-        out_specs=pl.BlockSpec((1, orows, LANE),
-                               lambda c, g, *_: (c, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((win, B, LANE), jnp.float32),
-                        pltpu.SemaphoreType.DMA],
-    )
-    return pl.pallas_call(
-        partial(_ranged_kernel, spc=spc, win=win, tpb=tpb),
-        out_shape=jax.ShapeDtypeStruct((n_chunks, orows, LANE),
+@partial(jax.jit, static_argnames=("n_guarded", "n_split", "interpret"))
+def _kernel_call(tptr, pane, meta, vflat, x3, *, n_guarded: int,
+                 n_split: int, interpret: bool):
+    out = pl.pallas_call(
+        partial(_kernel, n_split=n_split),
+        grid=(n_guarded, n_split),
+        out_shape=jax.ShapeDtypeStruct((n_split * n_guarded * B, LANE),
                                        jnp.float32),
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT),
-        interpret=interpret_mode(),
-    )(off, slo, plo, pane, sid, vflat, meta, x3p)
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=4),
+        interpret=interpret,
+        name="sbell_spmv",
+    )(tptr, pane, meta, vflat, x3.reshape(-1))
+    out = out.reshape(n_split, n_guarded, B, LANE)
+    return out[0] if n_split == 1 else out.sum(axis=0)
 
 
-def _sbell_chunked(sb: SBELL, x3, plan=None):
-    """Row-chunked near path: ONE pallas_call over a (chunk, step) grid;
-    each chunk walks its range of the GLOBAL tile stream via a
-    prefetch-scalar-driven index_map and DMAs its x pane window from HBM
-    in-kernel — zero operand copies, one compiled kernel, one dispatch.
-    x3 arrives GUARDED; returns the guarded output shape like the
-    resident path. Under jit, pass the host-computed plan explicitly (the
-    per-object cache does not survive pytree reconstruction of traced
-    arguments). The plan's bounds may be a host tuple of (g0, stripe_lo,
-    pane_lo) triples or an (n_chunks, 3) i32 array — the array form is
-    what the distributed path threads through shard_map (the plan's
-    STATIC fields stay uniform across shards; only bounds vary)."""
-    spc, win, gsteps, bounds = plan if plan is not None \
-        else _chunk_plan(sb)
-    # pad so any win-wide window DMA is in bounds
-    x3p = jnp.pad(x3, ((0, max(0, win - W_PANES + 1)), (0, 0), (0, 0)))
-    if isinstance(bounds, tuple):
-        n_chunks = len(bounds)
-        off = jnp.asarray([b[0] for b in bounds], jnp.int32)
-        slo = jnp.asarray([b[1] for b in bounds], jnp.int32)
-        plo = jnp.asarray([b[2] for b in bounds], jnp.int32)
-    else:
-        n_chunks = bounds.shape[0]
-        off, slo, plo = bounds[:, 0], bounds[:, 1], bounds[:, 2]
-    out = _sbell_call_ranged(
-        (off, slo, plo, sb.pane, sb.sid, sb.vflat, sb.meta, x3p),
-        n_chunks, gsteps, spc, win, sb.tpb)
-    # full chunks hold exactly spc stripes; the tail chunk is sliced by
-    # the global stripe count
-    y = out[:, :spc * B, :].reshape(n_chunks * spc * B, LANE)
-    y = y[:sb.n_stripes * B]
-    # guard stripes to match the resident path's guarded output shape
-    return jnp.pad(y, ((0, (W_PANES - 1) * B), (0, 0)))
+def near_kernel(sb: SBELL, x3: jax.Array, *, n_split: int | None = None,
+                interpret: bool = False) -> jax.Array:
+    """Near-tile product by the Triton kernel, guarded pane layout."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "sbell_spmv kernel compiles for CUDA GPUs only (backend is "
+            f"{jax.default_backend()!r}); pass interpret=True to run it "
+            "in the Pallas interpreter, or impl='xla'")
+    return _kernel_call(sb.tptr, sb.pane, sb.meta, sb.vflat, x3,
+                        n_guarded=sb.n_guarded,
+                        n_split=n_split or n_split_for(sb),
+                        interpret=interpret)
+
+
+def near_xla(sb: SBELL, x3: jax.Array) -> jax.Array:
+    """Near-tile product in plain XLA, guarded pane layout."""
+    c = sb.pane[:, None] * LANE + sb.meta                     # (T, 128)
+    base = (c >> 7) * PANE_COLS + (c & (LANE - 1))
+    jj = jnp.arange(B, dtype=jnp.int32)[None, :, None] * LANE
+    gx = x3.reshape(-1)[base[:, None, :] + jj]                # (T, 8j, 128)
+    v = sb.vflat.reshape(-1, B, B, LANE).astype(jnp.float32)  # [t,j,i,slot]
+    prod = jnp.sum(v * gx[:, :, None, :], axis=1)             # (T, 8i, 128)
+    return jax.ops.segment_sum(prod, sb.sid, num_segments=sb.n_guarded,
+                               indices_are_sorted=True)
+
+
+def far_panes(far, x3: jax.Array, n_guarded: int) -> jax.Array:
+    """Far block-COO contribution in guarded pane layout: one gather of
+    each block's 8 x entries, an 8-term multiply-sum in f32, one
+    scatter-add of its 8 outputs."""
+    jj = jnp.arange(B, dtype=jnp.int32)[None, :] * LANE
+    xin = (far.cols >> 7) * PANE_COLS + (far.cols & (LANE - 1))
+    gx = x3.reshape(-1)[xin[:, None] + jj]                    # (nf, 8j)
+    prod = jnp.sum(far.blocks.astype(jnp.float32) * gx[:, None, :],
+                   axis=2)                                    # (nf, 8i)
+    oin = (far.rows >> 7) * PANE_COLS + (far.rows & (LANE - 1))
+    out = jnp.zeros((n_guarded * PANE_COLS,), jnp.float32)
+    out = out.at[oin[:, None] + jj].add(prod)
+    return out.reshape(n_guarded, B, LANE)
+
+
+def default_impl() -> str:
+    """The kernel on a GPU, the XLA form on any other backend."""
+    return "kernel" if jax.default_backend() == "gpu" else "xla"
 
 
 def x_to_panes(sb: SBELL, xpad: jax.Array) -> jax.Array:
@@ -380,73 +149,37 @@ def x_to_panes(sb: SBELL, xpad: jax.Array) -> jax.Array:
 
 
 def panes_to_x(sb: SBELL, out3: jax.Array) -> jax.Array:
-    """Guarded kernel-output pane layout -> padded flat y."""
+    """Guarded output pane layout -> padded flat y."""
     return out3[:sb.n_stripes].transpose(0, 2, 1).reshape(-1)
 
 
-def sbell_spmv_panes(sb: SBELL, x3: jax.Array, chunk_plan=None
-                     ) -> jax.Array:
-    """y = A @ x entirely in GUARDED pane layout: x3 is
-    (n_panes + W_PANES - 1, 8, 128) with x3[p, j, l] = x[1024 p + 8 l + j]
-    and zero guard panes at the end; the result
-    (n_stripes + W_PANES - 1, 8, 128) satisfies the SAME convention over
-    y — for square matrices the output feeds the next matvec directly
-    with ZERO wrapper ops (guard stripes come zero-initialized from the
-    kernel; the grouped far set carries matching zero guard stripes).
-
-    The kernel's accumulation layout out[8 sid + i, r] =
-    y[1024 sid + 8 r + i] IS the pane layout of the next x (i<->j,
-    r<->l), so the per-iteration de-transpose + re-transpose + pads of
-    the flat API cancel entirely (round-3 attribution: those ~8 XLA
-    launches cost ~13 us around a 23 us kernel). Iterative solvers keep
+def sbell_spmv_panes(sb: SBELL, x3: jax.Array, *, impl: str | None = None,
+                     interpret: bool = False) -> jax.Array:
+    """y = A @ x entirely in GUARDED pane layout (module docstring). The
+    guard stripes of the result are zero, so for square matrices it is
+    the next matvec's input with zero wrapper ops; iterative solvers keep
     vectors in this layout across iterations."""
-    from libhpc_tpu.sparse.sbell import FarPane
-
-    chunked = _resident_bytes(sb.n_stripes, sb.n_panes) > VMEM_CAP
-    if chunked:
-        out = _sbell_chunked(sb, x3, chunk_plan)
+    impl = impl or default_impl()
+    if impl == "kernel":
+        out = near_kernel(sb, x3, interpret=interpret)
+    elif impl == "xla":
+        out = near_xla(sb, x3)
     else:
-        out = _sbell_call((sb.pane, sb.sid, sb.vflat, sb.meta, x3),
-                          sb.n_tiles, sb.n_stripes, sb.n_panes, sb.tpb)
-    if isinstance(sb.far, FarPane):
-        from libhpc_tpu.ops.far_pallas import (far_pane_out_panes,
-                                               far_pane_out_panes_xla)
-
-        guarded = (sb.n_stripes + W_PANES - 1) * B
-        # the far kernel keeps x3 VMEM-resident like the near kernel; in
-        # the chunked regime fall back to the XLA form (no VMEM bound)
-        far_fn = far_pane_out_panes_xla if chunked else far_pane_out_panes
-        out = out + far_fn(sb.far, x3, guarded)
-    elif sb.far is not None:
-        from libhpc_tpu.ops.spmv import far_spmv
-
-        xflat = x3[:sb.n_panes].transpose(0, 2, 1).reshape(-1)
-        yfar = far_spmv(sb.far, xflat)
-        yfar = yfar.reshape(sb.n_stripes, LANE, B).transpose(
-            0, 2, 1).reshape(sb.n_stripes * B, LANE)
-        out = out.at[:sb.n_stripes * B].add(yfar)
-    return out.reshape(sb.n_stripes + W_PANES - 1, B, LANE)
+        raise ValueError(f"impl must be 'kernel' or 'xla', got {impl!r}")
+    if sb.far is not None:
+        out = out + far_panes(sb.far, x3, sb.n_guarded)
+    return out
 
 
-def sbell_spmv_padded(sb: SBELL, xpad: jax.Array, chunk_plan=None
-                      ) -> jax.Array:
+def sbell_spmv_padded(sb: SBELL, xpad: jax.Array, **kw) -> jax.Array:
     """y = A @ x in the PADDED domain: xpad is (n_panes*1024,) f32 and the
-    result has n_stripes*1024 entries (zero pad rows/cols are inert).
-
-    Chained consumers that must stay FLAT skip the pad + slice ops of
-    sbell_spmv; fully chained solvers should use sbell_spmv_panes, which
-    also cancels the layout transposes."""
-    out3 = sbell_spmv_panes(sb, x_to_panes(sb, xpad), chunk_plan)
-    return panes_to_x(sb, out3)
+    result has n_stripes*1024 entries (zero pad rows/cols are inert)."""
+    return panes_to_x(sb, sbell_spmv_panes(sb, x_to_panes(sb, xpad), **kw))
 
 
-def sbell_spmv(sb: SBELL, x: jax.Array, chunk_plan=None) -> jax.Array:
+def sbell_spmv(sb: SBELL, x: jax.Array, **kw) -> jax.Array:
     """y = A @ x for SBELL A. x is f32 (ncols,); returns f32 (nrows,).
-
-    Matrices past the VMEM budget are row-chunked transparently (module
-    docstring); the resident single-call path is unchanged below it.
-    Callers that jit over a VMEM-busting matrix must pass a host-computed
-    chunk_plan (the distributed path does, parallel/dist_sbell.py)."""
+    Keyword arguments go to sbell_spmv_panes."""
     m, n = sb.shape
     xpad = jnp.pad(x, (0, sb.n_panes * PANE_COLS - n))
-    return sbell_spmv_padded(sb, xpad, chunk_plan)[:m]
+    return sbell_spmv_padded(sb, xpad, **kw)[:m]

@@ -1,6 +1,6 @@
 """Ghost-cell stencils.
 
-TPU re-expression of the reference's stencil-blur workload ladder
+Re-expression of the reference's stencil-blur workload ladder
 (tests/test_hpc_benchmark/test_hpc_benchmark.cpp:354-601: naive → prefetch →
 tiling → SIMD → ILP over an 8192×8192, radius-8 box blur) and of the
 ghost-cell machinery of HPCHighDimensionFlatArray
@@ -11,11 +11,6 @@ Design:
 - XLA paths use the running-sum (cumsum-difference) sliding window: O(N)
   independent of radius, strictly better than the reference's O(N·r) SIMD
   ladder — algorithmic win instead of instruction-level tuning.
-- The Pallas path (`blur2d_pallas`) demonstrates the explicit-halo discipline:
-  input stays in HBM (`memory_space=ANY`), each grid step DMAs a
-  (tile + 2·halo)-row window into VMEM and computes the interior — the
-  single-chip version of the distributed halo exchange in
-  libhpc_tpu.parallel.halo.
 - `poisson5_apply` is the matrix-free 5-point operator matching the CSR
   Poisson matrix (used to cross-validate SpMV and feed matrix-free CG).
 
@@ -29,11 +24,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
 from libhpc_tpu.containers import HaloArray
-from libhpc_tpu.ops._pallas_utils import LANE, cdiv, interpret_mode, tile_cumsum
 
 
 # ---------------------------------------------------------------------------
@@ -41,7 +32,7 @@ from libhpc_tpu.ops._pallas_utils import LANE, cdiv, interpret_mode, tile_cumsum
 # The single-chip paths below wrap with zero (Dirichlet) halos; the
 # distributed paths (parallel/dist_stencil.py) feed the SAME kernels
 # HaloArrays whose ghost cells came from ppermute neighbor exchange —
-# one definition of "ghost cells" for both (VERDICT r1 #6).
+# one definition of "ghost cells" for both.
 # ---------------------------------------------------------------------------
 
 
@@ -108,83 +99,6 @@ def poisson5_apply(u):
     """Matrix-free 5-point Poisson operator: 4u - u_N - u_S - u_E - u_W,
     zero Dirichlet halo. Matches libhpc_tpu.bench.matrices.poisson2d."""
     return poisson5_halo(HaloArray.wrap(u, 1))
-
-
-# ---------------------------------------------------------------------------
-# Pallas explicit-halo stencil
-# ---------------------------------------------------------------------------
-
-
-def _blur2d_kernel(a_hbm, o_ref, win_ref, sem, *, tile_m, radius, n_pad):
-    """One grid step: DMA (tile_m + 2r) rows of the padded input HBM→VMEM,
-    compute the radius-r box sum for tile_m output rows."""
-    i = pl.program_id(0)
-    r = radius
-    row0 = i * tile_m  # in padded coords, output row block starts at row0 + r
-    dma = pltpu.make_async_copy(
-        a_hbm.at[pl.ds(row0, tile_m + 2 * r), :],
-        win_ref,
-        sem,
-    )
-    dma.start()
-    dma.wait()
-    w = win_ref[:]  # (tile_m + 2r, n_pad) — columns already zero-padded by r
-    # X pass: cumsum along lanes, windowed difference
-    cx = tile_cumsum(w, axis=1)
-    hi = cx[:, 2 * r:]
-    lo = jnp.concatenate([jnp.zeros((w.shape[0], 1), w.dtype), cx[:, : -2 * r - 1]], axis=1)
-    bx = hi - lo  # (tile_m + 2r, n_pad - 2r)
-    # re-pad to full lane-aligned width (tail columns are don't-care)
-    bx = jnp.concatenate(
-        [bx, jnp.zeros((w.shape[0], 2 * r), w.dtype)], axis=1
-    )  # (tile_m + 2r, n_pad)
-    # Y pass over sublanes
-    cy = tile_cumsum(bx, axis=0)
-    hi_y = cy[2 * r:, :]
-    lo_y = jnp.concatenate([jnp.zeros((1, bx.shape[1]), w.dtype), cy[: -2 * r - 1, :]], axis=0)
-    o_ref[:] = hi_y - lo_y
-
-
-@partial(jax.jit, static_argnames=("radius", "tile_m"))
-def blur2d_pallas(a, radius: int = 8, tile_m: int | None = None):
-    """2D box sum via a Pallas kernel with explicit halo DMA.
-
-    The input is zero-padded by `radius` on all sides (ghost cells); each
-    grid step owns `tile_m` output rows and DMAs its window including the
-    halo rows — the reference's ghost-cell reads a(y, x±r) with negative
-    indices become in-window VMEM reads.
-
-    tile_m=None auto-sizes the row tile to the 16 MB scoped-VMEM budget:
-    the kernel holds ~5 live (tile_m-row, full-width) buffers (window, two
-    cumsums, re-padded X-pass, output — measured from Mosaic's scoped-vmem
-    accounting at 8192²), so wide rows need small tiles (8192² needs
-    tile_m <= ~56; 256 was a 25 MB VMEM OOM).
-    """
-    m, n = a.shape
-    r = radius
-    if tile_m is None:
-        n_pad_est = cdiv(n + 2 * r, LANE) * LANE
-        budget_rows = (12 << 20) // (5 * 4 * n_pad_est)  # ~12 MB over 5 bufs
-        tile_m = max(8, min(256, (budget_rows - 2 * r) // 8 * 8))
-    m_pad = cdiv(m, tile_m) * tile_m
-    n_pad = cdiv(n + 2 * r, LANE) * LANE
-    ap = jnp.zeros((m_pad + 2 * r, n_pad), a.dtype)
-    ap = ap.at[r : r + m, r : r + n].set(a)
-    grid = (m_pad // tile_m,)
-    out = pl.pallas_call(
-        partial(_blur2d_kernel, tile_m=tile_m, radius=r, n_pad=n_pad),
-        grid=grid,
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((tile_m, n_pad), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m_pad, n_pad), a.dtype),
-        scratch_shapes=[
-            pltpu.VMEM((tile_m + 2 * r, n_pad), a.dtype),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        interpret=interpret_mode(),
-    )(ap)
-    return out[:m, :n]
 
 
 @jax.jit

@@ -1,11 +1,10 @@
-"""Tiled matrix transpose.
+"""Matrix transpose.
 
-TPU-native descendant of the reference's bank-conflict-free shared-memory
-transpose (lib/gpu/util/include/cudaUtils.cuh:9-37 `kernel_transpose` and the
-stall_short testsuite ladder, cuda_tut_stall_short.cuh:6-57). On TPU the
-shared-memory tile becomes a VMEM block and the +1-padding trick is replaced
-by lane-aligned (128×128) tiles; the in-tile transpose runs on the VPU's
-shuffle network via `jnp .T`.
+Descendant of the reference's bank-conflict-free shared-memory transpose
+(lib/gpu/util/include/cudaUtils.cuh:9-37 `kernel_transpose` and the
+stall_short testsuite ladder, cuda_tut_stall_short.cuh:6-57). XLA emits its
+own tiled shared-memory transpose for `.T` on the GPU, which is the same
+design, so the op is the plain form.
 
 Used by the radix pipeline (local↔localT layout flips, SURVEY.md §3.1) and
 exposed as a standalone op.
@@ -14,68 +13,9 @@ exposed as a standalone op.
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from libhpc_tpu.ops._pallas_utils import cdiv, interpret_mode
-
-TILE = 128
-
-
-def _transpose_kernel(x_ref, o_ref):
-    o_ref[:] = x_ref[:].T
-
-
-from functools import partial  # noqa: E402
-
-
-@partial(jax.jit, static_argnames=("tile",))
-def transpose_pallas(x, tile: int = 1024):
-    """(M, N) -> (N, M) via tile×tile VMEM blocks.
-
-    Aligned shapes skip the padding copy entirely (it used to cost a full
-    extra HBM pass on the 8192² bench). Round-3 same-process sweep on v5e
-    (scripts/exp_transpose2.py, f32): 4096² tile-1024 778 GB/s vs XLA
-    739 (1.05x; round-2's 0.89x was cross-run HBM drift — only
-    same-process comparisons are valid on this rig); 8192² all variants
-    within noise at ~333. Double-wide/tall (t, 2t) blocks at t=1024 crash
-    the remote Mosaic compiler; t=512 variants are slightly slower."""
-    m, n = x.shape
-    m_pad = cdiv(m, tile) * tile
-    n_pad = cdiv(n, tile) * tile
-    xp = x
-    if (m_pad, n_pad) != (m, n):
-        xp = jnp.zeros((m_pad, n_pad), x.dtype).at[:m, :n].set(x)
-    out = pl.pallas_call(
-        _transpose_kernel,
-        grid=(m_pad // tile, n_pad // tile),
-        in_specs=[
-            pl.BlockSpec((tile, tile), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec((tile, tile), lambda i, j: (j, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad, m_pad), x.dtype),
-        interpret=interpret_mode(),
-    )(xp)
-    if (m_pad, n_pad) != (m, n):
-        out = out[:n, :m]
-    return out
-
-
-BEST_TILE = 1024  # winning tile from the round-3 same-process sweep
 
 
 @jax.jit
 def transpose(x):
-    """Matrix transpose: Pallas tiled kernel on TPU for 1024-aligned f32
-    shapes (wins the same-process sweep, see transpose_pallas), XLA
-    otherwise."""
-    from libhpc_tpu.ops._pallas_utils import on_tpu
-
-    m, n = x.shape
-    if (on_tpu() and x.dtype == jnp.float32
-            and m % BEST_TILE == 0 and n % BEST_TILE == 0):
-        return transpose_pallas(x, BEST_TILE)
+    """(M, N) -> (N, M)."""
     return x.T

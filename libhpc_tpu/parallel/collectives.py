@@ -1,9 +1,9 @@
 """Thin collective wrappers over `jax.lax` (used inside shard_map bodies).
 
-The TPU-native replacement for the reference's hierarchical reduce/scan
-trees (cuda_global_reduce_from_local.cuh:60-120): the cross-chip level of
+The replacement for the reference's hierarchical reduce/scan trees
+(cuda_global_reduce_from_local.cuh:60-120): the cross-device level of
 every reduction is a `psum`/`psum_scatter` over a mesh axis; XLA lowers
-these to ICI ring collectives. Neighbor exchange (`shift_up`/`shift_down`)
+these to the backend's collectives (NCCL on GPUs). Neighbor exchange (`shift_up`/`shift_down`)
 is the halo-exchange primitive built on `ppermute`.
 """
 

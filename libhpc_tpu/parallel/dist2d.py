@@ -6,7 +6,7 @@ over a 2D mesh ('py' × 'px'); x is sharded along 'px' and replicated along
 'py'. One SpMV:
 
     partial_i = A_{i,j} @ x_j            (local, each device)
-    y_i       = psum(partial_i, 'px')    (row-wise reduction over ICI)
+    y_i       = psum(partial_i, 'px')    (row-wise reduction across px)
 
 y comes back sharded over 'py' and replicated over 'px' — the transpose
 distribution of x, re-aligned for iterative use with one collective
@@ -19,6 +19,7 @@ Communication per SpMV: one psum of rows_local elements along 'px'
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -95,7 +96,7 @@ class Dist2DCSR:
 
 def dist2d_spmv_fn(A: Dist2DCSR, mesh: Mesh, axes=("py", "px"),
                    realign: bool = True):
-    """Jitted 2D SpMV.
+    """Jitted 2D SpMV (A is passed to the jitted program as an operand).
 
     Input x: sharded P(axes[1]) (i.e. over 'px', replicated over 'py'),
     given as a 1D global vector. Output y:
@@ -145,7 +146,7 @@ def dist2d_spmv_fn(A: Dist2DCSR, mesh: Mesh, axes=("py", "px"),
     )
 
     @jax.jit
-    def matvec(x):
+    def apply(A, x):
         return smapped(A.data, A.indices, A.indptr, x)
 
-    return matvec
+    return partial(apply, A)

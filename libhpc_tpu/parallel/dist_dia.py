@@ -5,12 +5,12 @@ matrices — BASELINE.json configs[0]/[3]/[4] weak scaling): each shard owns
 ``rows_local`` rows and a DIA slice whose column window extends ``maxoff``
 past the shard on both sides. One SpMV is then
 
-    halo = ppermute edges (maxoff elements per neighbor)   [ICI traffic]
+    halo = ppermute edges (maxoff elements per neighbor)   [peer traffic]
     y    = dia_spmv(local_band, [left_halo | x_local | right_halo])
 
 — zero gather, zero all_gather: communication is O(maxoff) per neighbor
-instead of O(n) per chip, and the multiply is the DIA streaming kernel that
-runs above the CSR roofline (PERF_NOTES.md). This is the halo-exchange SpMV
+instead of O(n) per device, and the multiply is the DIA streaming form
+(no index traffic at all). This is the halo-exchange SpMV
 the BASELINE north-star describes, and the direct distributed descendant of
 the reference's ghost-cell stencils (HPCHighDimensionFlatArray halos).
 
@@ -22,6 +22,7 @@ shard_map program.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -113,8 +114,9 @@ class DistDIA:
         return dataclasses.replace(self, data=jax.device_put(self.data, sh))
 
 
-def dist_dia_spmv_fn(A: DistDIA, mesh: Mesh, axis: str = "x"):
-    """Build the jitted halo-exchange banded matvec (x sharded P(axis))."""
+def dist_dia_spmv_apply(A: DistDIA, x, mesh: Mesh, axis: str = "x"):
+    """Traceable halo-exchange banded matvec (x sharded P(axis)); A is an
+    argument so jitted callers pass it as an operand."""
     from libhpc_tpu.ops.spmv import dia_spmv
 
     h = A.maxoff
@@ -138,16 +140,22 @@ def dist_dia_spmv_fn(A: DistDIA, mesh: Mesh, axis: str = "x"):
     smapped = jax.shard_map(
         body, mesh=mesh, in_specs=(P(axis), P(axis)), out_specs=P(axis)
     )
+    return smapped(A.data, x)
 
-    @jax.jit
-    def matvec(x):
-        return smapped(A.data, x)
 
-    return matvec
+def dist_dia_spmv_fn(A: DistDIA, mesh: Mesh, axis: str = "x"):
+    """The jitted halo-exchange banded matvec x -> A @ x."""
+    return partial(
+        jax.jit(partial(dist_dia_spmv_apply, mesh=mesh, axis=axis)), A)
 
 
 def dist_dia_cg(A: DistDIA, b, mesh: Mesh, axis: str = "x",
                 tol: float = 1e-6, max_iter: int = 1000):
     from libhpc_tpu.ops.solver import cg
 
-    return cg(dist_dia_spmv_fn(A, mesh, axis), b, tol=tol, max_iter=max_iter)
+    @jax.jit
+    def run(A, b):
+        return cg(partial(dist_dia_spmv_apply, A, mesh=mesh, axis=axis), b,
+                  tol=tol, max_iter=max_iter)
+
+    return run(A, b)

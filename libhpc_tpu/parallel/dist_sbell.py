@@ -2,22 +2,23 @@
 across the mesh.
 
 Extends the DistCSR overlap discipline (parallel/dist_spmv.py) to the
-Pallas SBELL fast path (ops/spmv_pallas.py): each shard owns a contiguous
-block of rows and splits its matrix slice into
+SBELL fast path (ops/spmv_pallas.py): each shard owns a contiguous block
+of rows and splits its matrix slice into
 
   diag — the column block the shard also owns x for: SpMV runs on the
          LOCAL x while the all_gather is in flight;
   offd — every other column (full-width SBELL): consumes the gathered x.
 
 This is the BASELINE.json weak-scaling workload (configs[2]: 100M-nnz
-unstructured SpMV over ICI/DCN) on the same kernel that wins single-chip.
+unstructured SpMV across devices) on the same matvec as one device.
 Setup is host-side scipy (one-time); the hot path is one jitted shard_map
-program whose per-shard compute is the SBELL Pallas kernel.
+program whose per-shard compute is the SBELL matvec.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -25,52 +26,25 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from libhpc_tpu.ops import spmv_pallas
 from libhpc_tpu.ops.spmv_pallas import sbell_spmv
-from libhpc_tpu.sparse.sbell import FarBlocks, SBELL, STRIPE_ROWS, TPB, VROWS
-
-
-def _unified_chunk_plans(sbs, n_panes: int):
-    """Uniform-static VMEM chunk plans across shards (ADVICE r3: shards
-    past the VMEM budget must not hit the host-only _chunk_plan at trace
-    time inside shard_map).
-
-    Returns (static, bounds): static = (spc, win, gsteps) shared by every
-    shard (shard_map compiles ONE program), bounds = (S, n_chunks, 3) i32
-    per-shard (g0, stripe_lo, pane_lo) threaded through as a sharded
-    operand. (None, None) when the resident path fits."""
-    sl = sbs[0].n_stripes
-    if spmv_pallas._resident_bytes(sl, n_panes) <= spmv_pallas.VMEM_CAP:
-        return None, None
-    auto = [spmv_pallas._chunk_plan(sb) for sb in sbs]
-    # uniform stripes-per-chunk: the smallest any shard needs (smaller
-    # groups have <= pane windows, so forcing min is always VMEM-safe)
-    spc = min(p[0] for p in auto)
-    plans = [spmv_pallas._chunk_plan(sb, force_spc=spc) for sb in sbs]
-    win = max(p[1] for p in plans)
-    gsteps = max(p[2] for p in plans)
-    G = sbs[0].n_tiles // sbs[0].tpb
-    n_chunks = -(-sl // spc)
-    bounds = np.zeros((len(sbs), n_chunks, 3), np.int32)
-    for s, p in enumerate(plans):
-        for c, (g0, s_lo, p_lo) in enumerate(p[3]):
-            # re-clamp g0 for the unified (possibly larger) gsteps;
-            # extra walked tiles are predicated off in-kernel
-            bounds[s, c] = (min(g0, max(G - gsteps, 0)), s_lo, p_lo)
-    return (spc, win, gsteps), jnp.asarray(bounds)
+from libhpc_tpu.sparse.sbell import (FarBlocks, SBELL, STRIPE_ROWS, VROWS,
+                                     tile_pointer)
 
 
 def _pad_sbell_tiles(sb: SBELL, n_tiles: int) -> SBELL:
-    """Zero-pad a shard's tile stream so every shard has the same count."""
+    """Zero-pad a shard's tile stream so every shard has the same count.
+    Padding tiles join the first guard stripe (inert: zero values)."""
     extra = n_tiles - sb.n_tiles
     if extra == 0:
         return sb
+    sid = jnp.pad(sb.sid, (0, extra), constant_values=sb.n_stripes)
     return dataclasses.replace(
         sb,
         vflat=jnp.pad(sb.vflat, ((0, extra * VROWS), (0, 0))),
         meta=jnp.pad(sb.meta, ((0, extra), (0, 0))),
         pane=jnp.pad(sb.pane, (0, extra)),
-        sid=jnp.pad(sb.sid, (0, extra)),
+        sid=sid,
+        tptr=jnp.asarray(tile_pointer(np.asarray(sid), sb.n_guarded)),
     )
 
 
@@ -78,7 +52,7 @@ def _pad_far(f: FarBlocks | None, nf: int, shape) -> FarBlocks:
     """Uniform-length (possibly empty) far block-COO so shards stack.
 
     Padding entries are zero blocks aimed at (row 0, col 0) — harmless
-    under the scatter-ADD in ops/spmv.py:far_spmv."""
+    under the far set's scatter-add (ops/spmv_pallas.py:far_panes)."""
     have = 0 if f is None else f.n_far
     extra = nf - have
     if f is None:
@@ -107,23 +81,19 @@ class DistSBELL:
     diag_meta: jax.Array
     diag_pane: jax.Array
     diag_sid: jax.Array
+    diag_tptr: jax.Array
     offd_vflat: jax.Array
     offd_meta: jax.Array
     offd_pane: jax.Array
     offd_sid: jax.Array
+    offd_tptr: jax.Array
     far_rows: jax.Array      # (S, nf) far block-COO (zero-block padded)
     far_cols: jax.Array      # (S, nf)
     far_blocks: jax.Array    # (S, nf, 8, 8)
-    diag_bounds: jax.Array   # (S, n_chunks, 3) VMEM chunk bounds ((S,1,3)
-    offd_bounds: jax.Array   # zeros when the resident path fits)
     shape: tuple = dataclasses.field(metadata=dict(static=True))
     n_shards: int = dataclasses.field(metadata=dict(static=True))
     stripes_local: int = dataclasses.field(metadata=dict(static=True))
     has_far: bool = dataclasses.field(metadata=dict(static=True))
-    # (spc, win, gsteps) chunk statics shared by all shards, or None
-    diag_chunk: tuple = dataclasses.field(metadata=dict(static=True))
-    offd_chunk: tuple = dataclasses.field(metadata=dict(static=True))
-    tpb: int = dataclasses.field(default=TPB, metadata=dict(static=True))
 
     @property
     def rows_local(self) -> int:
@@ -155,8 +125,8 @@ class DistSBELL:
                 [blk[:, :r0], sps.csr_matrix((rows_local, rows_local)),
                  blk[:, r1:]]).tocsr()
             # flat far form: the shard merger below re-stacks FarBlocks
-            diags.append(SBELL.from_scipy(d, group_far=False))
-            offds.append(SBELL.from_scipy(o, group_far=False))
+            diags.append(SBELL.from_scipy(d))
+            offds.append(SBELL.from_scipy(o))
 
         dt = max(sb.n_tiles for sb in diags)
         ot = max(sb.n_tiles for sb in offds)
@@ -196,35 +166,23 @@ class DistSBELL:
                 nf_max = max(nf_max, merged.n_far)
         fars = [_pad_far(f, nf_max, (rows_local, nc)) for f in fars]
 
-        # VMEM chunk plans, host-computed ONCE here (shards past the VMEM
-        # budget would otherwise hit the host-only _chunk_plan inside the
-        # traced shard_map body and fail at trace time)
-        diag_chunk, diag_bounds = _unified_chunk_plans(
-            diags, rows_local // 1024)
-        offd_chunk, offd_bounds = _unified_chunk_plans(offds, nc // 1024)
-        if diag_bounds is None:
-            diag_bounds = jnp.zeros((n_shards, 1, 3), jnp.int32)
-        if offd_bounds is None:
-            offd_bounds = jnp.zeros((n_shards, 1, 3), jnp.int32)
-
         stack = lambda xs: jnp.stack(xs)
         return DistSBELL(
             diag_vflat=stack([sb.vflat for sb in diags]),
             diag_meta=stack([sb.meta for sb in diags]),
             diag_pane=stack([sb.pane for sb in diags]),
             diag_sid=stack([sb.sid for sb in diags]),
+            diag_tptr=stack([sb.tptr for sb in diags]),
             offd_vflat=stack([sb.vflat for sb in offds]),
             offd_meta=stack([sb.meta for sb in offds]),
             offd_pane=stack([sb.pane for sb in offds]),
             offd_sid=stack([sb.sid for sb in offds]),
+            offd_tptr=stack([sb.tptr for sb in offds]),
             far_rows=stack([f.rows for f in fars]),
             far_cols=stack([f.cols for f in fars]),
             far_blocks=stack([f.blocks for f in fars]),
-            diag_bounds=diag_bounds, offd_bounds=offd_bounds,
             shape=(nr, nc), n_shards=n_shards,
             stripes_local=stripes_local, has_far=has_far,
-            diag_chunk=diag_chunk, offd_chunk=offd_chunk,
-            tpb=diags[0].tpb,
         )
 
     def shard(self, mesh: Mesh, axis: str = "x") -> "DistSBELL":
@@ -234,56 +192,54 @@ class DistSBELL:
             self,
             diag_vflat=put(self.diag_vflat), diag_meta=put(self.diag_meta),
             diag_pane=put(self.diag_pane), diag_sid=put(self.diag_sid),
+            diag_tptr=put(self.diag_tptr),
             offd_vflat=put(self.offd_vflat), offd_meta=put(self.offd_meta),
             offd_pane=put(self.offd_pane), offd_sid=put(self.offd_sid),
+            offd_tptr=put(self.offd_tptr),
             far_rows=put(self.far_rows), far_cols=put(self.far_cols),
             far_blocks=put(self.far_blocks),
-            diag_bounds=put(self.diag_bounds),
-            offd_bounds=put(self.offd_bounds),
         )
 
 
-def dist_sbell_spmv_fn(A: DistSBELL, mesh: Mesh, axis: str = "x"):
-    """Jitted distributed matvec: x sharded P(axis) -> y sharded P(axis).
+def dist_sbell_spmv_apply(A: DistSBELL, x, mesh: Mesh, axis: str = "x",
+                          **spmv_kw):
+    """Traceable distributed matvec: x sharded P(axis) -> y sharded P(axis).
+    spmv_kw (impl=, interpret=) go to each shard's sbell_spmv. A is an
+    argument so jitted callers pass it as an operand.
 
-    all_gather(x) is issued first; the diagonal-block SBELL kernel (local
-    x) runs while the gather rides the ICI; offd consumes the gathered x."""
+    all_gather(x) is issued first; the diagonal-block SBELL matvec (local
+    x) runs while the gather is in flight; offd consumes the gathered x."""
     rows_local = A.rows_local
     nr, nc = A.shape
     sl = A.stripes_local
 
-    def body(dv, dm, dp, ds, ov, om, op_, os_, fr, fc, fb, db, ob, x):
+    def body(dv, dm, dp, ds, dt, ov, om, op_, os_, ot, fr, fc, fb, x):
         x_l = x.reshape(-1)
         xg = lax.all_gather(x_l, axis, tiled=True)
         sb_d = SBELL(vflat=dv[0], meta=dm[0], pane=dp[0], sid=ds[0],
-                     far=None,
+                     tptr=dt[0], far=None,
                      shape=(rows_local, rows_local), n_stripes=sl,
-                     n_panes=rows_local // 1024, tpb=A.tpb)
-        plan_d = None if A.diag_chunk is None else (*A.diag_chunk, db[0])
-        y = sbell_spmv(sb_d, x_l, plan_d)
+                     n_panes=rows_local // 1024)
+        y = sbell_spmv(sb_d, x_l, **spmv_kw)
+        far = FarBlocks(rows=fr[0], cols=fc[0], blocks=fb[0],
+                        shape=(rows_local, nc)) if A.has_far else None
         sb_o = SBELL(vflat=ov[0], meta=om[0], pane=op_[0], sid=os_[0],
-                     far=None,
+                     tptr=ot[0], far=far,
                      shape=(rows_local, nc), n_stripes=sl,
-                     n_panes=nc // 1024, tpb=A.tpb)
-        plan_o = None if A.offd_chunk is None else (*A.offd_chunk, ob[0])
-        y = y + sbell_spmv(sb_o, xg, plan_o)
-        if A.has_far:
-            from libhpc_tpu.ops.spmv import far_spmv
-
-            far = FarBlocks(rows=fr[0], cols=fc[0], blocks=fb[0],
-                            shape=(rows_local, nc))
-            y = y + far_spmv(far, xg)
-        return y
+                     n_panes=nc // 1024)
+        return y + sbell_spmv(sb_o, xg, **spmv_kw)
 
     # check_vma=False: pallas_call out_shapes don't carry vma annotations
     smapped = jax.shard_map(body, mesh=mesh, in_specs=(P(axis),) * 14,
                             out_specs=P(axis), check_vma=False)
+    return smapped(A.diag_vflat, A.diag_meta, A.diag_pane, A.diag_sid,
+                   A.diag_tptr, A.offd_vflat, A.offd_meta, A.offd_pane,
+                   A.offd_sid, A.offd_tptr, A.far_rows, A.far_cols,
+                   A.far_blocks, x)
 
-    @jax.jit
-    def matvec(x):
-        return smapped(A.diag_vflat, A.diag_meta, A.diag_pane, A.diag_sid,
-                       A.offd_vflat, A.offd_meta, A.offd_pane, A.offd_sid,
-                       A.far_rows, A.far_cols, A.far_blocks,
-                       A.diag_bounds, A.offd_bounds, x)
 
-    return matvec
+def dist_sbell_spmv_fn(A: DistSBELL, mesh: Mesh, axis: str = "x",
+                       **spmv_kw):
+    """The jitted distributed matvec x -> A @ x (dist_sbell_spmv_apply)."""
+    return partial(jax.jit(partial(dist_sbell_spmv_apply, mesh=mesh,
+                                   axis=axis, **spmv_kw)), A)

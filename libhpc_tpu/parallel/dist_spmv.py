@@ -1,6 +1,6 @@
 """Distributed (row-partitioned) SpMV / SpMM / CG over a device mesh.
 
-New TPU-native work (the reference is single-node — SURVEY.md §2 'absent'
+New work beyond the reference (it is single-node — SURVEY.md §2 'absent'
 note): matrices are row-partitioned across the mesh axis; each shard holds
 
   diag  — the block of columns the shard also owns x for (local compute)
@@ -9,7 +9,7 @@ note): matrices are row-partitioned across the mesh axis; each shard holds
 SpMV overlap discipline (the distributed descendant of the reference's
 compute/transfer overlap suite, cuda_tut_transfer_overlap.cu:41-142):
 issue the `all_gather` of x first, compute `diag @ x_local` while the
-gather rides the ICI, then the off-diagonal part consumes the gathered
+gather is in flight, then the off-diagonal part consumes the gathered
 vector — XLA's async collectives give the pattern-A pipeline for free.
 
 Setup is host-side (numpy/scipy, one-time); the hot path is one jitted
@@ -19,6 +19,7 @@ shard_map program.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -123,18 +124,20 @@ def _local_csr_spmv(data, indices, indptr, x, nrows):
     return jax.ops.segment_sum(data * x[indices], rows, num_segments=nrows)
 
 
-def dist_spmv_fn(A: DistCSR, mesh: Mesh, axis: str = "x"):
-    """Build the jitted distributed matvec: (x sharded P(axis)) -> y sharded.
+def dist_spmv_apply(A: DistCSR, x, mesh: Mesh, axis: str = "x"):
+    """Traceable distributed matvec (x sharded P(axis)) -> y sharded.
 
     Inside the shard body: all_gather(x) is issued first; the diagonal-block
     SpMV (pure local) runs while the gather is in flight; the off-diagonal
-    SpMV then consumes the gathered vector.
+    SpMV then consumes the gathered vector. A is an argument, so a jitted
+    caller passes the matrix as an operand instead of embedding it as a
+    compile-time constant.
     """
     rows_local = A.rows_local
 
     def body(dd, di, dp, od, oi, op, x):
         x_l = x.reshape(-1)                       # local shard (rows_local,)
-        xg = lax.all_gather(x_l, axis, tiled=True)  # async over ICI
+        xg = lax.all_gather(x_l, axis, tiled=True)  # async collective
         y = _local_csr_spmv(dd[0], di[0], dp[0], x_l, rows_local)
         y = y + _local_csr_spmv(od[0], oi[0], op[0], xg, rows_local)
         return y
@@ -145,24 +148,30 @@ def dist_spmv_fn(A: DistCSR, mesh: Mesh, axis: str = "x"):
                   P(axis)),
         out_specs=P(axis),
     )
+    return smapped(A.diag_data, A.diag_indices, A.diag_indptr,
+                   A.offd_data, A.offd_indices, A.offd_indptr, x)
 
-    @jax.jit
-    def matvec(x):
-        return smapped(A.diag_data, A.diag_indices, A.diag_indptr,
-                       A.offd_data, A.offd_indices, A.offd_indptr, x)
 
-    return matvec
+def dist_spmv_fn(A: DistCSR, mesh: Mesh, axis: str = "x"):
+    """The jitted distributed matvec x -> A @ x (see dist_spmv_apply)."""
+    return partial(jax.jit(partial(dist_spmv_apply, mesh=mesh, axis=axis)),
+                   A)
 
 
 def dist_cg(A: DistCSR, b, mesh: Mesh, axis: str = "x", tol: float = 1e-6,
             max_iter: int = 1000):
     """Distributed CG: the matvec is the overlapped dist SpMV; the dot
     products reduce over the mesh axis implicitly (x/y are sharded arrays and
-    jnp.vdot under jit inserts the psum)."""
+    jnp.vdot under jit inserts the psum). One jitted program with A as an
+    operand."""
     from libhpc_tpu.ops.solver import cg
 
-    matvec = dist_spmv_fn(A, mesh, axis)
-    return cg(matvec, b, tol=tol, max_iter=max_iter)
+    @jax.jit
+    def run(A, b):
+        return cg(partial(dist_spmv_apply, A, mesh=mesh, axis=axis), b,
+                  tol=tol, max_iter=max_iter)
+
+    return run(A, b)
 
 
 def dist_spmm_fn(A: DistCSR, mesh: Mesh, n_cols: int, axis: str = "x"):

@@ -45,7 +45,7 @@ def exchange_to_halo(x, halo: int, axis: str, wrap: bool = False):
     """Local shard -> HaloArray whose leading-dim ghost cells were refreshed
     from mesh neighbors (ppermute). The distributed counterpart of
     HaloArray.wrap: same container, different ghost-fill policy — stencil
-    kernels (ops/stencil.py:*_halo) cannot tell them apart (VERDICT r1 #6).
+    kernels (ops/stencil.py:*_halo) cannot tell them apart.
     """
     from libhpc_tpu.containers import HaloArray
 

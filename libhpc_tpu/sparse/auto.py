@@ -2,27 +2,20 @@
 matvec" users migrating from the reference's format-per-structure zoo
 (SURVEY.md §2.3-2.7; docs/MIGRATION.md).
 
-Heuristics follow the measured round 1-4 truths (PERF_NOTES):
-  * few distinct diagonals  -> DIA: VMEM-resident XLA form while the
-    working set fits (~100 MB), the Pallas streaming kernel past it
-    (176-225 Gnnz/s at any size);
-  * scalar-regular (no 8x8 block density) -> SELL-P (the per-row-
-    sourced plane ELL, ops/sellp.py — ~20 Gnnz/s, no pane-window
-    restriction) when its (pane, sublane) buckets pack tightly
-    (diagonal-ish structure), else the round-4 rotation-gather SELL
-    (dense packing for ANY within-window structure at W·8 passes);
-  * everything else -> SBELL (the flagship block path, ~0.9-1.0 of the
-    HBM roofline on FEM matrices; bf16 value stream optional).
+Routes, in order:
+  * few distinct, well-filled diagonals -> DIA: shifted multiply-adds that
+    XLA fuses into one elementwise pass at any size;
+  * 8x8-block-dense (FEM-class) -> SBELL, the flagship block path (the
+    Triton kernel on a GPU; bf16 value stream optional);
+  * scalar-regular rows (ELL rectangle, k padded to 8, k*m <= 4*nnz) ->
+    ELL: one dense gather of x and a row sum;
+  * everything else -> CSR: gather + segment-sum over the stored entries.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-
-# past this working set the XLA DIA forms leave VMEM residency and
-# collapse; the Pallas kernel takes over (PERF_NOTES round 4)
-_DIA_VMEM_BYTES = 100 * 1024 * 1024
 _DIA_MAX_OFFSETS = 96          # matches ops/spmv.py MAX_DIA_OFFSETS
 
 
@@ -30,85 +23,55 @@ def auto_format(A, prefer_bf16: bool = False):
     """Pick a container + matvec for a scipy sparse matrix.
 
     Returns (container, matvec) where matvec(container, x) -> y and the
-    container is one of DIA / DiaPallas / SELL / SBELL."""
+    container is one of DIA / SBELL / ELL / CSR."""
     import scipy.sparse as sps
 
     A = sps.csr_matrix(A)
     m, n = A.shape
 
     # --- structured? count distinct diagonals ---------------------------
-    # gate on diagonal FILL too (ADVICE r4): a scatter of nnz along <=96
-    # long offsets would build a dense m*D DIA container streaming orders
-    # of magnitude more bytes per matvec than SELL/SBELL; require each
-    # stored diagonal to be ~quarter-populated on average before paying
-    # for the rectangle
+    # gate on diagonal FILL too: a scatter of nnz along <=96 long offsets
+    # would build a dense m*D DIA container streaming orders of magnitude
+    # more bytes per matvec than the sparse routes; require each stored
+    # diagonal to be ~quarter-populated on average before paying for the
+    # rectangle
     coo = A.tocoo()
     diags = np.unique(coo.col.astype(np.int64) - coo.row)
     dia_fill_ok = A.nnz >= 0.25 * diags.size * min(m, n)
     if diags.size <= _DIA_MAX_OFFSETS and dia_fill_ok:
+        from libhpc_tpu.ops.spmv import dia_spmv
         from libhpc_tpu.sparse.dia import DIA
 
-        dia = DIA.from_scipy(A)
-        work = dia.data.size * 4 + (m + n) * 4
-        if work <= _DIA_VMEM_BYTES:
-            from libhpc_tpu.ops.spmv import dia_spmv
-
-            return dia, dia_spmv
-        from libhpc_tpu.ops.dia_pallas import dia_spmv_pallas
-
-        return dia.to_pallas(), dia_spmv_pallas
+        return DIA.from_scipy(A), dia_spmv
 
     # --- 8x8-block-dense (FEM-class)? the flagship SBELL wins -----------
     # block fill estimated from COORDINATES (unique touched 8x8 blocks),
     # NOT via A.tobsr((8,8)) — on a large scattered matrix tobsr
     # densifies up to 64x host-side before the heuristic can reject it
-    # (VERDICT r4 #7)
     n_blocks = np.unique((coo.row.astype(np.int64) >> 3) * (-(-n // 8))
                          + (coo.col.astype(np.int64) >> 3)).size
-    blockish = A.nnz >= 0.5 * 64 * max(n_blocks, 1)
+    if A.nnz >= 0.5 * 64 * max(n_blocks, 1):
+        from libhpc_tpu.ops.spmv_pallas import sbell_spmv
+        from libhpc_tpu.sparse.sbell import SBELL
 
-    # --- scalar-regular? SELL-P (no window restriction) -----------------
-    if not blockish:
-        # packing must stay sane or the planes waste bandwidth (uniform
-        # random scatter fragments the per-pane units ~10x). Estimate
-        # the unit count from COORDINATES before building anything
-        # (same no-blowup discipline as the tobsr fix, VERDICT r4 #7):
-        # one row unit per distinct (stripe, x-pane, x-sublane,
-        # out-sublane) — a lower bound on tiles*8, so a lower bound on
-        # fill; reject without paying the builder.
-        r64 = coo.row.astype(np.int64)
-        c64 = coo.col.astype(np.int64)
-        unit_key = ((((r64 >> 10) * (-(-n // 1024)) + (c64 >> 10)) << 6)
-                    | ((c64 & 7) << 3) | (r64 & 7))
-        n_units = np.unique(unit_key).size
-        est_fill = n_units * 128 / max(A.nnz, 1)
-        if est_fill <= 4.0:
-            from libhpc_tpu.ops.sellp import sellp_from_scipy, sellp_spmv
+        sb = SBELL.from_scipy(A)
+        if prefer_bf16:
+            import jax.numpy as jnp
 
-            sp = sellp_from_scipy(A)
-            if sp.fill_ratio(A.nnz) <= 4.0:
-                return sp, sellp_spmv
-        # SELL-P fragments when entries don't align on (pane, sublane)
-        # buckets (e.g. few random nnz/row in a band) — the round-4
-        # rotation-gather SELL packs those densely at W·8 passes/tile
-        try:
-            from libhpc_tpu.ops.ell_pallas import (sell_from_scipy,
-                                                   sell_spmv)
+            sb = sb.astype_values(jnp.bfloat16)
+        return sb, sbell_spmv
 
-            lens = np.diff(A.indptr)
-            k = int(lens.max()) if lens.size else 0
-            if k and k * m <= 4 * max(A.nnz, 1):
-                return sell_from_scipy(A), sell_spmv
-        except ValueError:
-            pass    # windows too wide -> fall through to SBELL
+    # --- scalar-regular? ELL while its padded rectangle stays tight -----
+    from libhpc_tpu.sparse.csr import CSR
 
-    # --- the flagship unstructured path ---------------------------------
-    from libhpc_tpu.ops.spmv_pallas import sbell_spmv
-    from libhpc_tpu.sparse.sbell import SBELL
+    csr = CSR.from_scipy(A)
+    lens = np.diff(A.indptr)
+    k_pad = -(-int(lens.max()) // 8) * 8 if lens.size else 0
+    if A.nnz and k_pad * m <= 4 * A.nnz:
+        from libhpc_tpu.ops.spmv import ell_spmv
+        from libhpc_tpu.sparse.ell import ELL
 
-    sb = SBELL.from_scipy(A)
-    if prefer_bf16:
-        import jax.numpy as jnp
+        return ELL.from_csr(csr, pad_multiple=8), ell_spmv
+    from libhpc_tpu.ops.spmv import csr_spmv
 
-        sb = sb.astype_values(jnp.bfloat16)
-    return sb, sbell_spmv
+    return csr, csr_spmv

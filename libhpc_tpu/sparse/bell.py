@@ -1,12 +1,11 @@
 """BELL (block-ELLPACK) — the fast unstructured-SpMV layout.
 
 BSR with each block-row padded to a fixed K blocks, so the SpMV reduction
-runs along a *dense* axis (VPU sum) instead of a segment scatter-add — the
-measured bottleneck of plain BSR on TPU (segment_sum ~0.15 G writes/s,
-scripts/exp_scatter.py). Padding blocks are zero with column index 0: they
+runs along a *dense* axis (a plain sum) instead of a segment scatter-add.
+Padding blocks are zero with column index 0: they
 multiply to zero and vanish in the reduction.
 
-The TPU-native descendant of the reference's dense-leaf tiling
+The descendant of the reference's dense-leaf tiling
 (lib/sparse/include/DenseBlock.hpp:12-13) applied to matrix storage; the
 fixed-K discipline is the same static-shape trade the reference makes with
 its compile-time BlockSize/GridSize template parameters (SURVEY.md §5.6).

@@ -1,13 +1,13 @@
-"""BSR (block sparse row) — the MXU compute layout.
+"""BSR (block sparse row) — the dense-block compute layout.
 
 Dense ``b×b`` tiles addressed by a block-level CSR structure, with blocks
-optionally laid out in Morton order for locality (the TPU-native descendant
+optionally laid out in Morton order for locality (the descendant
 of the reference's hierarchical DenseBlock leaves,
 lib/sparse/include/DenseBlock.hpp:12-13, and its libmorton tilings).
 
-Block values are stored as one (nblocks, b, b) array so the Pallas BSR SpMV
-kernel can stream whole block-rows HBM→VMEM and feed the MXU with batched
-``b×b`` dots (BASELINE.json configs[1]: 8×8 blocks on SuiteSparse matrices).
+Block values are stored as one (nblocks, b, b) array so the block SpMV /
+SpMM stream whole blocks and contract them as batched ``b×b`` dots
+(BASELINE.json configs[1]: 8×8 blocks on SuiteSparse matrices).
 """
 
 from __future__ import annotations
@@ -121,9 +121,17 @@ class BSR:
         return out.transpose(0, 2, 1, 3).reshape(self.shape)
 
     def to_scipy(self):
+        """Host scipy CSR with duplicate blocks summed and zeros dropped,
+        built from the blocks — never densified."""
         import scipy.sparse as sps
 
-        return sps.csr_matrix(np.asarray(self.todense()))
+        A = sps.bsr_matrix((np.asarray(self.blocks),
+                            np.asarray(self.indices),
+                            np.asarray(self.indptr)),
+                           shape=self.shape).tocsr()
+        A.sum_duplicates()
+        A.eliminate_zeros()
+        return A
 
     def fill_ratio(self) -> float:
         """Stored elements / true nonzeros — the BSR fill-in overhead metric

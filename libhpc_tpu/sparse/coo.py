@@ -4,7 +4,7 @@ Entry point of the container stack: construction from raw triplets, sorting
 into canonical (row-major, Morton, or column-major) order via the radix-style
 key sort, and conversion to CSR. This replaces the reference's insert-on-touch
 hierarchical grid construction path (lib/sparse/include/HashBlock.hpp:92-102)
-with a batch-oriented sort-then-segment flow, which is the TPU-native idiom.
+with a batch-oriented sort-then-segment flow, the idiomatic JAX form.
 """
 
 from __future__ import annotations

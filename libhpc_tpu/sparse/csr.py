@@ -2,11 +2,12 @@
 
 The workhorse container (BASELINE.json configs[0]): static-shape CSR with
 int32 indices, scipy bridges for oracle testing, and conversions to the
-TPU-friendly ELL/BSR layouts used by the Pallas SpMV kernels.
+ELL/BSR compute layouts.
 
-Design note (SURVEY.md §7 "hard parts" #1): TPU has no gather-friendly
-memory system, so CSR itself is the *interchange* format; the compute
-formats are ELL (bounded nnz/row, dense gather) and BSR (MXU block-dot).
+Design note (SURVEY.md §7 "hard parts" #1): scalar gathers are the
+expensive part of SpMV, so CSR itself is the *interchange* format; the
+compute formats are ELL (bounded nnz/row, dense gather) and BSR/SBELL
+(8×8 block dots).
 CSR SpMV falls back to gather + segment-sum, which XLA compiles well enough
 to be HBM-bound for moderate row irregularity.
 """

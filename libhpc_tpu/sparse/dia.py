@@ -1,8 +1,8 @@
-"""DIA (diagonal) sparse format — the zero-gather TPU fast path.
+"""DIA (diagonal) sparse format — the zero-gather fast path.
 
 For banded matrices (Poisson stencils, structured FEM) SpMV becomes a
 static set of shifted elementwise multiply-adds: no index arrays, no
-gather — pure HBM streaming that the VPU executes at speed-of-light. This
+gather — pure streaming that XLA fuses into one elementwise pass. This
 is the format-level expression of the reference's stencil insight (the blur
 kernels read a(y, x±r) at static offsets, test_hpc_benchmark.cpp:354-601):
 when the sparsity pattern is structured, encode it in the *program*, not in
@@ -58,16 +58,6 @@ class DIA:
     @staticmethod
     def from_csr(csr) -> "DIA":
         return DIA.from_scipy(csr.to_scipy())
-
-    def to_pallas(self, T: int = 1 << 17):
-        """Tile for the Pallas streaming kernel (ops/dia_pallas.py) —
-        the fast path once the working set exceeds VMEM (~100 MB on
-        v5e): the XLA forms either live in VMEM (small operators, fine)
-        or collapse to 93-440 GB/s of wasted traffic (PERF_NOTES r4);
-        the kernel holds 176-225 Gnnz/s at any size."""
-        from libhpc_tpu.ops.dia_pallas import DiaPallas
-
-        return DiaPallas.from_dia(self, T=T)
 
     def to_scipy(self):
         import scipy.sparse as sps

@@ -1,10 +1,10 @@
-"""ELL (ELLPACK) sparse format — the TPU compute layout for row-wise SpMV.
+"""ELL (ELLPACK) sparse format — the dense compute layout for row-wise SpMV.
 
 Each row stores exactly ``k = max_nnz_per_row`` (column, value) slots, padded
 with (0, 0.0). This converts CSR row irregularity into a dense (nrows, k)
 rectangle: gathers become dense ``x[cols]`` takes and the reduction a dense
-axis sum — both of which XLA tiles well onto the VPU. This is the mitigation
-for SURVEY.md §7 hard-part #1 (no gather-friendly memory system on TPU).
+axis sum — both of which XLA fuses into one pass. This is the mitigation
+for SURVEY.md §7 hard-part #1 (irregular scalar gathers).
 
 Padding-invariance is a first-class correctness property here, mirroring the
 reference's ``IgnoresPadding`` GPU test variants
@@ -43,7 +43,7 @@ class ELL:
 
         Setup transform — runs host-side in numpy (one-time cost; keeps the
         accelerator out of the conversion path entirely). k is rounded up to
-        ``pad_multiple`` for sublane alignment.
+        ``pad_multiple``.
         """
         indptr = np.asarray(csr.indptr)
         indices = np.asarray(csr.indices)

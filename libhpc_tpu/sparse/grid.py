@@ -1,10 +1,10 @@
-"""Hierarchical sparse block grid — TPU-native re-expression of the
+"""Hierarchical sparse block grid — a batched JAX re-expression of the
 reference's lib/sparse stack (RootGrid / PointerBlock / HashBlock /
 DenseBlock, lib/sparse/include/RootGrid.hpp:12, SparseDS.hpp:4-7).
 
 The reference allocates dense leaf tiles on first touch behind CAS/hash
-inserts (PointerBlock.hpp:100-125, HashBlock.hpp:92-102). On TPU there are
-no atomics and no pointers; the same capabilities become:
+inserts (PointerBlock.hpp:100-125, HashBlock.hpp:92-102). Batched JAX
+has no per-thread atomics and no pointers; the same capabilities become:
 
   tile_map (Gy, Gx) int32   — the 'pointer block': slot id or -1 (= null)
   tiles (capacity, B, B)    — the pool of dense leaf blocks ('DenseBlock's)
@@ -142,9 +142,8 @@ class BlockGrid:
         bx, by, ox, oy = self._split(xs.astype(jnp.int32), ys.astype(jnp.int32))
         slot = self.tile_map[by, bx]
         b = self.block_size
-        # linearized destination: flat 1D scatter (equal speed to 3D
-        # multi-index scatter on TPU — measured, scripts/exp_scatter.py —
-        # but one fused index computation instead of three scatter dims)
+        # linearized destination: flat 1D scatter (one fused index
+        # computation instead of three scatter dims)
         lin = slot * (b * b) + oy * b + ox
         n_lin = self.capacity * b * b
         lin_safe = jnp.where(slot >= 0, lin, n_lin)  # OOB → dropped
@@ -164,8 +163,8 @@ class BlockGrid:
         path for large random write bursts (the particle workload,
         test_hpc_benchmark.cpp:866-870).
 
-        `write_batch` pays a per-element tile_map gather (~7 ns/elem on v5e)
-        *plus* the pool scatter (~7 ns). Here writes scatter straight into a
+        `write_batch` pays a per-element tile_map gather *plus* the pool
+        scatter. Here writes scatter straight into a
         dense (Gy·B, Gx·B) zero image by raster coordinate (pure arithmetic
         indexing, no gather), and the image is folded into the tile pool with
         one per-tile row-gather through the slot->tile inverse map (B²-sized
@@ -281,7 +280,7 @@ class NestedGrid:
       leaves (cap_leaf, B, B)      — dense leaf pool
 
     Element (x, y) resolves through two indirections; all mutation is
-    batched sort-dedupe-allocate (no atomics needed on TPU)."""
+    batched sort-dedupe-allocate (no atomics needed)."""
 
     map0: jax.Array
     mid_maps: jax.Array

@@ -1,8 +1,7 @@
 """Banded-hybrid format: RCM reordering + DIA band + sparse remainder.
 
-The round-1 answer to unstructured SpMV on TPU (PERF_NOTES.md: scalar
-gather 0.14 G elem/s makes pure ELL/CSR hopeless, while DIA streams at
-~90 Gnnz/s): reorder the matrix with reverse Cuthill–McKee to concentrate
+An answer to unstructured SpMV when scalar gathers are expensive and
+shifted streams are cheap: reorder the matrix with reverse Cuthill–McKee to concentrate
 nnz near the diagonal, store the K most-populated diagonals as DIA
 (zero-gather), and keep the leftover entries in ELL (gather-bound but
 small). SpMV = dia_spmv + ell_spmv on the permuted vector.
@@ -11,7 +10,7 @@ The effectiveness knob is `coverage` = fraction of nnz captured by the
 band — reported so users can see the gather exposure. Setup is host-side
 scipy (one-time); the hot path is jitted.
 
-Applicability (measured, PERF_NOTES.md): quasi-structured matrices
+Applicability: quasi-structured matrices
 (stencils, banded FD/FV, tensor-product operators) reach coverage ≈ 1 and
 run at DIA speed. General FEM matrices (cant/pwtk class) stay sparse
 *inside* their RCM band — a diagonal census captures only ~20% — so their

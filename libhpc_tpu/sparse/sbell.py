@@ -1,35 +1,28 @@
-"""SBELL — striped block-ELL, the Pallas unstructured-SpMV layout.
+"""SBELL — striped block-ELL, the unstructured-SpMV layout.
 
-The round-1 BELL path (sparse/bell.py) is bound by XLA's HBM row-gather
-(0.35 G rows/s -> ~17 Gnnz/s on cant-class FEM matrices, PERF_NOTES.md).
-SBELL restructures the same 8x8-block data so the x-lookup becomes the one
-gather primitive the VPU executes at full rate: a 128-lane-window dynamic
-shuffle (`take_along_axis(axis=1)`; every wider window fails to lower —
-scripts/exp_lane_gather2/3.py).
-
-Layout (v4 — row-slice tiles; v1-v3 history in PERF_NOTES.md):
+Layout (row-slice tiles over 8x8 blocks):
   * stripes of 128 block-rows (1024 scalar rows). Each block-row's
     blocks are sorted by column; SLICE k of a stripe collects the k-th
-    block of every block-row — so tile slot i IS local block-row i.
-    The per-tile partial products then land directly in output layout
-    and the whole per-block-row reduction is 8 VPU multiply-adds: the
-    v1-v3 one-hot MXU row-scatter (92 ns/tile, the reason v3 was
-    compute-bound at 134 ns/tile vs 55 ns of DMA) disappears.
-  * a tile is one (64,128) f32 value plane V[8j+i, slot] =
-    block_slot[i,j] plus one (1,128) int32 meta row (col_local, 9 bits)
-    carried in a separate aligned stream — no 72-row DMA padding tax.
-  * tile slots gather x from a window of <=2 consecutive 128-block-col
-    x *panes* (static two-pass lane gather). Banded/FEM matrices keep
-    the window property per slice because 128 consecutive block-rows
-    span ~band-width consecutive block-cols.
+    block of every block-row — so tile slot i IS local block-row i and
+    a tile's partial products land directly in output layout.
+  * a tile is one (64, 128) value plane V[8j+i, slot] = block_slot[i, j]
+    plus one (128,) int32 meta row (col_local, 9 bits). Values stream
+    coalesced: row 8j+i of the plane is 128 consecutive words.
+  * tile slots gather x from a window of <= W_PANES consecutive
+    128-block-col x *panes*: a tile's block column is
+    pane * 128 + meta[slot]. Banded/FEM matrices keep the window
+    property per slice because 128 consecutive block-rows span
+    ~band-width consecutive block-cols, so the 128 gathered x entries
+    of one tile row are near-contiguous in the pane layout.
+  * tiles are stripe-major; tptr[s]:tptr[s+1] is stripe s's tile range
+    (a CSR pointer over stripes), so a kernel program can own a stripe
+    and walk its tiles with no scatter.
   * blocks outside their slice's pane window, slices thinner than
     MIN_OCCUPANCY rows, and blocks past K_CAP slices: routed to the
-    FAR set — a flat block-COO applied through the XLA row-gather path
-    (ops/spmv.py:far_spmv), one gather + one scatter-add entry per far
-    block (~17 ns/block measured), proportional to n_far only.
-  * per-tile scalars (x-pane base, stripe id) are scalar-prefetch arrays.
+    FAR set — a flat block-COO applied as one gather + one scatter-add
+    per far block, proportional to n_far only.
 
-Capability parity: the TPU re-expression of the reference's hierarchical
+Capability parity: the re-expression of the reference's hierarchical
 sparse-grid + dense-leaf storage (lib/sparse/include/DenseBlock.hpp,
 PointerBlock.hpp) applied to matrix storage, per BASELINE.json configs[1]
 (SuiteSparse cant/pwtk, 8x8 blocks).
@@ -43,36 +36,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-B = 8              # scalar block size (8x8 = one f32 sublane tile)
+B = 8              # scalar block size (8x8 blocks)
 LANE = 128         # slots per tile = local block-rows per stripe
 STRIPE_ROWS = B * LANE      # 1024 scalar rows per stripe
 PANE_COLS = B * LANE        # 1024 scalar cols per x pane
 VROWS = B * B      # 64 value rows per tile (meta rides separately)
-TPB = int(__import__("os").environ.get("LIBHPC_SBELL_TPB", "16"))
-                   # tiles per kernel grid step (v5e sweep: 16 beats 8 by
-                   # 30% — 45 vs 64 ns/tile — and 32 regresses for f32;
-                   # scripts/exp_sbell_attrib.py TPB sweep, round 3; env
-                   # knob for the bf16 sweep, round 4)
-TPB_BF16 = int(__import__("os").environ.get("LIBHPC_SBELL_TPB_BF16", "32"))
-                   # 2-byte value streams default to a 2x-deeper grid
-                   # step (same 540 KB per-step transfer as f32@16): at
-                   # TPB=16 the halved per-step DMA left the grid
-                   # pipeline latency-bound at ~25-34 ns/tile — the
-                   # committed 0.54-of-roofline bf16 fraction (BENCH_r04).
-                   # Round-5 attribution (scripts/exp_r5_bf16.py:
-                   # mincompute==full at tpb>=32, so NOT compute-bound)
-                   # and the 10-round interleaved sweep
-                   # (exp_r5_bf16_tpb.py: cant 25.1/16.7/19.2, pwtk
-                   # 33.7/26.8/~24 ns per REAL tile at tpb 16/32/64) put
-                   # bf16@32 at >=0.88 of its own-byte model with
-                   # 1.8-2.4x the f32 Gnnz/s; 64 wins slightly on pwtk
-                   # but pads +6.7% tiles on cant (480 -> 512).
-W_PANES = 3        # x panes a tile may span (static gather passes): a
-                   # slice of 128 consecutive block-rows spans ~128+band
-                   # block-cols, which can straddle two pane boundaries
-# a near tile costs one ~33 KB DMA (~55 ns at HBM speed); a far block
-# costs ~10-17 ns (gather+scatter, scripts/exp_sbell_tpu.py probe) — so
-# slices below ~4-8 blocks are cheaper on the far path
+W_PANES = 3        # x panes a tile may span: a slice of 128 consecutive
+                   # block-rows spans ~128+band block-cols, which can
+                   # straddle two pane boundaries
+# a near tile streams a full 64x128 value plane whatever its occupancy,
+# so slices below ~8 blocks are cheaper as individual far blocks
 MIN_OCCUPANCY = 8   # slices thinner than this dissolve into the far set
 K_CAP = 32          # max slices per stripe; deeper rows spill to far
 
@@ -88,7 +61,7 @@ class FarBlocks:
 
     rows: jax.Array    # (nf,) i32 block-row ids (duplicates allowed)
     cols: jax.Array    # (nf,) i32 block-col ids
-    blocks: jax.Array  # (nf, B, B) f32
+    blocks: jax.Array  # (nf, B, B) f32 (or bf16 for the bf16 variant)
     shape: tuple = dataclasses.field(metadata=dict(static=True))
 
     @property
@@ -108,146 +81,40 @@ class FarBlocks:
                 + self.n_far * B * 4 + 3 * self.n_far * B * 4)
 
 
-FAR_SPS = 8        # stripes per far-kernel grid step (ops/far_pallas.py)
-
-
-def _group_far(rows, cols, blocks, n_stripes: int, shape):
-    """Build the stripe-grouped pane-plan far set (FarPane — consumed by
-    the Pallas far kernel, ops/far_pallas.py), or fall back to the flat
-    FarBlocks when one stripe hoards more than LANE far blocks (the
-    kernel packs a stripe's entries into 128 lanes) or uniform padding
-    would blow memory up >4x (+ slack).
-
-    The grouped arrays carry W_PANES-1 zero GUARD stripes (plus FAR_SPS
-    grid-step padding) so the far contribution has the same guarded shape
-    as the near-kernel output — the far add is then a full-shape
-    elementwise add with no pad op in the chained pane-resident path."""
-    nf = rows.shape[0]
-    stripe = rows // LANE
-    slot = rows % LANE
-    counts = np.bincount(stripe, minlength=n_stripes)
-    E = int(counts.max()) if nf else 0
-    if E == 0 or E > LANE or n_stripes * E > 4 * nf + 4096:
-        return FarBlocks(rows=jnp.asarray(rows.astype(np.int32)),
-                         cols=jnp.asarray(cols.astype(np.int32)),
-                         blocks=jnp.asarray(blocks), shape=shape)
-    panes_e = (cols >> 7).astype(np.int64)
-    order = np.lexsort((panes_e, stripe))   # stripe-major, pane within
-    s_o = stripe[order]
-    p_o = panes_e[order]
-    pos = np.concatenate([[0], np.cumsum(counts)])[:-1]
-    e_o = np.arange(nf) - pos[s_o]          # lane slot within stripe
-    # distinct-pane runs (entries are pane-sorted within each stripe)
-    newp = np.ones(nf, bool)
-    newp[1:] = (s_o[1:] != s_o[:-1]) | (p_o[1:] != p_o[:-1])
-    run_id = np.cumsum(newp) - 1            # global run index
-    stripe_start = np.ones(nf, bool)
-    stripe_start[1:] = s_o[1:] != s_o[:-1]
-    # run index of each entry's stripe-first run, propagated forward
-    base = np.maximum.accumulate(np.where(stripe_start, run_id, -1))
-    d_idx = run_id - base                   # per-stripe distinct-pane rank
-    D = int(d_idx.max()) + 1
-    E_pad = -(-max(E, 1) // B) * B
-    n_g = n_stripes + W_PANES - 1
-    n_gp = -(-n_g // FAR_SPS) * FAR_SPS     # grid-step padding
-    ep = np.full((n_gp, LANE), -1, np.int32)
-    li = np.zeros((n_gp, LANE), np.int32)
-    bt = np.zeros((n_gp, B, B, LANE), np.float32)    # [s, j, i, e]
-    oh = np.zeros((n_gp, E_pad, LANE), np.float32)
-    panes_t = np.zeros((n_gp, D), np.int32)
-    ep[s_o, e_o] = p_o.astype(np.int32)
-    li[s_o, e_o] = (cols[order] & (LANE - 1)).astype(np.int32)
-    # bt[s, j, i, e] = block_e[i, j] — j-major planes so the kernel's
-    # product loop is the same 8-FMA form as the near kernel's
-    bt[s_o, :, :, e_o] = blocks[order].transpose(0, 2, 1)
-    oh[s_o, e_o, slot[order]] = 1.0
-    panes_t[s_o[newp], d_idx[newp]] = p_o[newp].astype(np.int32)
-    return FarPane(panes=jnp.asarray(panes_t), ep=jnp.asarray(ep),
-                   lidx=jnp.asarray(li),
-                   bt=jnp.asarray(bt.reshape(n_gp * B * B, LANE)),
-                   oh=jnp.asarray(oh.reshape(n_gp * E_pad, LANE)),
-                   shape=shape, n_real=int(nf), n_grouped=n_gp,
-                   e_pad=E_pad, d_max=D)
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class FarPane:
-    """Kernel-ready far set: far blocks grouped by stripe with a
-    host-built PANE PLAN, consumed by the Pallas far kernel
-    (ops/far_pallas.py:far_pane_out_panes).
-
-    History: the round-2 flat path (XLA gather + scatter-add) cost ~19 ns
-    per block; the round-4 FarGrouped form killed the scatter with a
-    one-hot matmul but kept the XLA x row-gather, which round-5
-    attribution showed is ~14 ns per PADDED entry at ANY row width —
-    808 us at the 100M-nnz scale, equal to the entire near kernel
-    (scripts/exp_r5_chunk_attrib.py lineage). The pane plan moves the
-    whole computation into one Pallas kernel where every step is a
-    full-rate primitive:
-
-      gather   masked 128-lane shuffles over the stripe's <=D distinct
-               panes (the SBELL co-design trick, applied to the far set)
-      product  8 FMA planes: prod[i,e] = sum_j bt[s,j,i,e] * gx[j,e]
-      scatter  one (8,E)@(E,128) MXU one-hot matmul per stripe, landing
-               in the near kernel's output layout
-
-    Entries pack into the 128 LANES per stripe (e <= LANE enforced by
-    the builder), so all arrays are lane-major with zero layout padding.
-    Guard + grid-step padding stripes ride at the end (zero data)."""
-
-    panes: jax.Array    # (S_g, D) i32 distinct panes per stripe (0-pad)
-    ep: jax.Array       # (S_g, LANE) i32 entry's pane (-1 = no entry)
-    lidx: jax.Array     # (S_g, LANE) i32 entry's x lane
-    bt: jax.Array       # (S_g*B*B, LANE) f32: [s,8j+i,e] = block_e[i,j]
-    oh: jax.Array       # (S_g*E_pad, LANE) f32 one-hot entry -> out lane
-    shape: tuple = dataclasses.field(metadata=dict(static=True))
-    n_real: int = dataclasses.field(metadata=dict(static=True))
-    n_grouped: int = dataclasses.field(metadata=dict(static=True))
-    e_pad: int = dataclasses.field(metadata=dict(static=True))
-    d_max: int = dataclasses.field(metadata=dict(static=True))
-
-    @property
-    def n_far(self) -> int:
-        return self.n_real
-
-    @property
-    def nnz_stored(self) -> int:
-        return self.n_far * B * B
-
-    @property
-    def hbm_bytes(self) -> int:
-        """Per-SpMV traffic: the four streamed plan arrays + the guarded
-        output add (read+write). x rides the resident panes already
-        counted by SBELL.hbm_bytes."""
-        bsize = jnp.dtype(self.bt.dtype).itemsize
-        return (self.bt.size * bsize + self.oh.size * 4
-                + self.ep.size * 4 + self.lidx.size * 4
-                + self.panes.size * 4
-                + 2 * self.n_grouped * B * LANE * 4)
+def tile_pointer(sid: np.ndarray, n_guarded: int) -> np.ndarray:
+    """(n_guarded + 1,) i32 stripe -> tile-range pointer of a stripe-major
+    tile stream: stripe s owns tiles [ptr[s], ptr[s+1])."""
+    return np.searchsorted(np.asarray(sid), np.arange(n_guarded + 1),
+                           side="left").astype(np.int32)
 
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class SBELL:
-    """Striped block-ELL matrix (see module docstring for the layout)."""
+    """Striped block-ELL matrix (see module docstring for the layout).
 
-    vflat: jax.Array   # (n_tiles*VROWS, 128) f32 value planes
+    Padding tiles (zero values) carry the first guard stripe's id, so
+    `sid` stays sorted and every consumer treats them as inert."""
+
+    vflat: jax.Array   # (n_tiles*VROWS, 128) f32/bf16 value planes
     meta: jax.Array    # (n_tiles, 128) i32 col_local per slot
-    pane: jax.Array    # (n_tiles,) i32 base x-pane per tile (prefetch)
-    sid: jax.Array     # (n_tiles,) i32 stripe id per tile (prefetch)
-    far: object        # FarBlocks (scatter path), FarPane, or None
+    pane: jax.Array    # (n_tiles,) i32 base x-pane per tile
+    sid: jax.Array     # (n_tiles,) i32 stripe id per tile (sorted)
+    tptr: jax.Array    # (n_stripes + W_PANES,) i32 stripe tile pointer
+    far: object        # FarBlocks or None
     shape: tuple = dataclasses.field(metadata=dict(static=True))
     n_stripes: int = dataclasses.field(metadata=dict(static=True))
     n_panes: int = dataclasses.field(metadata=dict(static=True))
-    # tiles per kernel grid step — per-OBJECT so the bf16 variant can run
-    # its own optimum (f32: 16; bf16: 32 — the halved per-step DMA shifts
-    # the fixed-cost balance, round-4 sweep)
-    tpb: int = dataclasses.field(default=TPB, metadata=dict(static=True))
 
     @property
     def n_tiles(self) -> int:
         return self.vflat.shape[0] // VROWS
+
+    @property
+    def n_guarded(self) -> int:
+        """Stripes of the guarded output layout (W_PANES - 1 zero guard
+        stripes ride after the real ones)."""
+        return self.n_stripes + W_PANES - 1
 
     @property
     def nnz_stored(self) -> int:
@@ -257,58 +124,29 @@ class SBELL:
 
     @property
     def hbm_bytes(self) -> int:
-        """Bytes streamed per SpMV: near value+meta planes + the far
-        block-COO set's own traffic + x + y. The value-plane term uses
-        the actual stored itemsize (2 for the bf16 variant)."""
+        """Bytes streamed per SpMV: near value+meta planes + per-tile
+        scalars + the far set's own traffic + x + y. The value-plane term
+        uses the actual stored itemsize (2 for the bf16 variant)."""
         far = self.far.hbm_bytes if self.far is not None else 0
         vsize = jnp.dtype(self.vflat.dtype).itemsize
         return (self.vflat.size * vsize + self.meta.size * 4
+                + self.pane.size * 4 + self.tptr.size * 4
                 + self.n_panes * PANE_COLS * 4
                 + self.n_stripes * STRIPE_ROWS * 4
                 + far)
 
-    def astype_values(self, dtype, tpb: int | None = None) -> "SBELL":
-        """Value-stream precision variant (ROADMAP #7): cast the stored
-        values — 80%+ of hbm_bytes on cant/pwtk — to `dtype` (bf16
-        halves the dominant HBM stream; the kernel and the far einsums
-        still accumulate in f32, so the result equals the bf16-QUANTIZED
-        operator applied in f32: error vs the f32 operator is bounded by
-        bf16's 2^-8 relative value rounding). Far blocks are cast too so
-        the quantization is uniform (testable against a quantized scipy
-        oracle); FarPane's one-hot slot matrix stays f32.
-
-        tpb defaults to TPB_BF16 for 2-byte dtypes (the halved per-step
-        DMA leaves the grid pipeline latency-bound at the f32 TPB —
-        round-5 attribution, see TPB_BF16 above); pass tpb explicitly to
-        override."""
+    def astype_values(self, dtype) -> "SBELL":
+        """Value-stream precision variant: cast the stored values — 80%+
+        of hbm_bytes on cant/pwtk — to `dtype` (bf16 halves the dominant
+        HBM stream; the matvec still accumulates in f32, so the result
+        equals the bf16-QUANTIZED operator applied in f32: error vs the
+        f32 operator is bounded by bf16's 2^-8 relative value rounding).
+        Far blocks are cast too so the quantization is uniform."""
         far = self.far
-        if isinstance(far, FarPane):
-            far = dataclasses.replace(far, bt=far.bt.astype(dtype))
-        elif far is not None:
-            far = dataclasses.replace(far,
-                                      blocks=far.blocks.astype(dtype))
-        out = dataclasses.replace(
-            self, vflat=self.vflat.astype(dtype), far=far)
-        if tpb is None and jnp.dtype(dtype).itemsize == 2:
-            tpb = TPB_BF16
-        if tpb is not None and tpb != self.tpb:
-            out = out.retile(tpb)
-        return out
-
-    def retile(self, tpb: int) -> "SBELL":
-        """Re-pad the tile stream for a different tiles-per-grid-step
-        (extra tiles are zero-valued, stripe 0 — inert under the
-        accumulate)."""
-        n_tiles = self.n_tiles
-        new_pad = -(-n_tiles // tpb) * tpb
-        extra = new_pad - n_tiles
+        if far is not None:
+            far = dataclasses.replace(far, blocks=far.blocks.astype(dtype))
         return dataclasses.replace(
-            self,
-            vflat=jnp.pad(self.vflat, ((0, extra * VROWS), (0, 0))),
-            meta=jnp.pad(self.meta, ((0, extra), (0, 0))),
-            pane=jnp.pad(self.pane, (0, extra)),
-            sid=jnp.pad(self.sid, (0, extra)),
-            tpb=tpb)
+            self, vflat=self.vflat.astype(dtype), far=far)
 
     def fill_ratio(self, nnz: int) -> float:
         return self.nnz_stored / max(nnz, 1)
@@ -321,16 +159,8 @@ class SBELL:
         return self.far.n_far / max(self.far.n_far + self.n_tiles * LANE, 1)
 
     @staticmethod
-    def from_scipy(A, group_far: bool = True,
-                   tpb: int | None = None) -> "SBELL":
-        """Host-side construction from any scipy.sparse matrix.
-
-        group_far=False keeps the far set as flat FarBlocks (the scatter
-        path) — the distributed builder needs the flat form to merge and
-        re-stack shards (parallel/dist_sbell.py). tpb overrides the
-        tiles-per-grid-step (default: module TPB / LIBHPC_SBELL_TPB)."""
-        if tpb is None:
-            tpb = TPB
+    def from_scipy(A) -> "SBELL":
+        """Host-side construction from any scipy.sparse matrix."""
         import scipy.sparse as sps
 
         A = sps.csr_matrix(A)
@@ -366,9 +196,8 @@ class SBELL:
             blk = blocks[lo:hi]
             # per block-row, blocks sorted by column (CSR/BSR guarantee):
             # slice k = the k-th block of every row that has one
-            kpos = np.concatenate(
-                [np.arange(c, dtype=np.int64) for c in counts]) \
-                if len(counts) else np.empty(0, np.int64)
+            kpos = np.arange(hi - lo, dtype=np.int64) \
+                - np.repeat(indptr[r0:r1] - lo, counts)
             for k in range(K):
                 sel = kpos == k
                 rows_k = brl[sel]
@@ -403,12 +232,13 @@ class SBELL:
                 meta[rows_k] = (cols_k - (best << 7)).astype(np.int32)
                 tiles.append((v, meta, best, s))
 
+        # an operator with no near tile keeps one inert padding tile so
+        # every array has a nonzero extent
         n_tiles = max(len(tiles), 1)
-        n_tiles_pad = -(-n_tiles // tpb) * tpb
-        vflat = np.zeros((n_tiles_pad, VROWS, LANE), np.float32)
-        metas = np.zeros((n_tiles_pad, LANE), np.int32)
-        pane = np.zeros(n_tiles_pad, np.int32)
-        sid = np.zeros(n_tiles_pad, np.int32)
+        vflat = np.zeros((n_tiles, VROWS, LANE), np.float32)
+        metas = np.zeros((n_tiles, LANE), np.int32)
+        pane = np.zeros(n_tiles, np.int32)
+        sid = np.full(n_tiles, n_stripes, np.int32)
         for t, (v, meta, p, s) in enumerate(tiles):
             vflat[t] = v
             metas[t] = meta
@@ -416,26 +246,21 @@ class SBELL:
 
         far = None
         if far_br:
-            rows_f = np.concatenate(far_br).astype(np.int64)
-            cols_f = np.concatenate(far_bc).astype(np.int64)
-            blk_f = np.concatenate(far_blk, dtype=np.float32)
-            if group_far:
-                far = _group_far(rows_f, cols_f, blk_f, n_stripes,
-                                 (mp, np_))
-            else:
-                far = FarBlocks(
-                    rows=jnp.asarray(rows_f.astype(np.int32)),
-                    cols=jnp.asarray(cols_f.astype(np.int32)),
-                    blocks=jnp.asarray(blk_f), shape=(mp, np_))
+            far = FarBlocks(
+                rows=jnp.asarray(np.concatenate(far_br).astype(np.int32)),
+                cols=jnp.asarray(np.concatenate(far_bc).astype(np.int32)),
+                blocks=jnp.asarray(np.concatenate(far_blk,
+                                                  dtype=np.float32)),
+                shape=(mp, np_))
 
         return SBELL(
-            vflat=jnp.asarray(vflat.reshape(n_tiles_pad * VROWS, LANE)),
+            vflat=jnp.asarray(vflat.reshape(n_tiles * VROWS, LANE)),
             meta=jnp.asarray(metas),
             pane=jnp.asarray(pane),
             sid=jnp.asarray(sid),
+            tptr=jnp.asarray(tile_pointer(sid, n_stripes + W_PANES - 1)),
             far=far,
             shape=(m, n),
             n_stripes=n_stripes,
             n_panes=n_panes,
-            tpb=tpb,
         )

@@ -1,2 +1,1 @@
-from libhpc_tpu.utils.morton import morton2d_encode, morton2d_decode  # noqa: F401
-from libhpc_tpu.utils.config import KernelConfig  # noqa: F401
+from libhpc_tpu.utils.config import RadixConfig  # noqa: F401

@@ -2,38 +2,14 @@
 
 The reference configures everything at compile time through template
 parameters (SURVEY.md §5.6; e.g. BinSize restricted to {16, 256, 65536} in
-lib/sort/radix_cpu/include/radix_sort_cpu.hpp:26-31). The TPU-native
-equivalent is frozen dataclasses whose fields become static arguments of
-jitted functions and compile-time parameters of Pallas kernels.
+lib/sort/radix_cpu/include/radix_sort_cpu.hpp:26-31). The JAX equivalent is
+frozen dataclasses whose fields become static arguments of jitted
+functions.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-
-def _check_pow2(name: str, v: int) -> None:
-    if v <= 0 or (v & (v - 1)) != 0:
-        raise ValueError(f"{name} must be a positive power of two, got {v}")
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelConfig:
-    """Tiling parameters for Pallas kernels.
-
-    lane must stay 128 (TPU lane width); sublane tiles should be multiples of
-    8 (f32) / 16 (bf16).
-    """
-
-    tile_m: int = 256
-    tile_n: int = 256
-    lane: int = 128
-
-    def __post_init__(self):
-        _check_pow2("tile_m", self.tile_m)
-        _check_pow2("tile_n", self.tile_n)
-        if self.lane != 128:
-            raise ValueError("TPU lane width is 128")
 
 
 @dataclasses.dataclass(frozen=True)

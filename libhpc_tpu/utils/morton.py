@@ -1,6 +1,6 @@
 """Morton (Z-order) codes in pure JAX.
 
-TPU-native replacement for the vendored ``libmorton`` the reference consumes
+Replacement for the vendored ``libmorton`` the reference consumes
 (reference: tests/test_hpc_benchmark/test_hpc_benchmark.cpp:705,722 uses
 ``libmorton::morton2D_32_decode`` for cache-friendly tiled transposes).
 

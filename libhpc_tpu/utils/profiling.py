@@ -1,8 +1,8 @@
-"""Tracing / profiling helpers (SURVEY.md §5.1 TPU equivalent).
+"""Tracing / profiling helpers (SURVEY.md §5.1).
 
 The reference brackets every pipeline stage with NVTX ranges
-(cuda_radix_sort_v4.cu:99-211) for Nsight timelines. The TPU equivalents:
-`jax.named_scope` (shows up in XLA HLO + XProf timelines), `jax.profiler`
+(cuda_radix_sort_v4.cu:99-211) for Nsight timelines. The JAX equivalents:
+`jax.named_scope` (shows up in XLA HLO + profiler timelines), `jax.profiler`
 trace capture, and a tiny scoped wall-timer for host-side phases.
 """
 
@@ -19,7 +19,7 @@ annotate = jax.named_scope
 
 @contextlib.contextmanager
 def trace_to(logdir: str):
-    """Capture a profiler trace (viewable in XProf/TensorBoard)."""
+    """Capture a profiler trace (viewable in TensorBoard or Perfetto)."""
     jax.profiler.start_trace(logdir)
     try:
         yield

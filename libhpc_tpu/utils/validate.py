@@ -1,8 +1,8 @@
-"""Device-side invariant checking (SURVEY.md §5.2 TPU equivalent).
+"""Device-side invariant checking (SURVEY.md §5.2).
 
 The reference guards kernels with device traps (`asm("trap;")` on
 out-of-bounds scatter positions, cuda_radix_scatter.cuh:94,176) and debug
-sync-and-check after every launch. The TPU equivalents:
+sync-and-check after every launch. The JAX equivalents:
 
   - `checkify`-wrapped validators for container invariants (jittable)
   - host-side `validate_*` raising ValueError (setup-path checks)

@@ -1,6 +1,6 @@
 // Hazard-pointer reclamation domain (Michael's scheme).
 //
-// TPU-build host-runtime parity for the reference's second lock-free
+// Host-runtime parity for the reference's second lock-free
 // reclamation scheme (lib/concurrency/stack/include/
 // stack_lockfree_hazard_based.hpp:22-148: static 128-slot hazard array,
 // thread-local slot acquisition, retire-scan-reclaim). This is a fresh

@@ -1,6 +1,6 @@
 // Hand-over-hand (lock-coupling) concurrent linked list.
 //
-// TPU-build host runtime parity for the reference's LinkListLK
+// Host runtime parity for the reference's LinkListLK
 // (lib/concurrency/linklist/include/linklist_lk.hpp:14-135, SURVEY.md
 // §2.17): per-node mutex, traversal locks at most two nodes at a time.
 #pragma once

@@ -1,6 +1,6 @@
 // Lock-free stack with packed split reference counting.
 //
-// TPU-build host runtime parity for the reference's reclamation-safe stacks
+// Host runtime parity for the reference's reclamation-safe stacks
 // (lib/concurrency/stack: hazard-pointer and split-ref-count variants,
 // SURVEY.md §2.15). This is the split-reference-count design with the
 // reference's packing trick (atomic_reference_node.hpp:55-155): a 48-bit

@@ -1,4 +1,4 @@
-// Arena memory pool — TPU-build host runtime.
+// Arena memory pool — host runtime.
 //
 // C++17 re-design of the capabilities of the reference's nginx-style C pool
 // (lib/mempool/single/src/single_mempool_impl.c:31-254): bump-pointer pages

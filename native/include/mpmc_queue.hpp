@@ -1,6 +1,6 @@
 // Bounded lock-free MPMC queue (Vyukov sequence-counter design).
 //
-// TPU-build host runtime replacement for the capabilities of the reference's
+// Host runtime replacement for the capabilities of the reference's
 // Michael–Scott queue with packed external/internal reference counting
 // (lib/concurrency/queue/include/queue_lockfree.hpp:63-191). A bounded
 // ticket/sequence queue needs no reclamation scheme at all — slots are

@@ -1,6 +1,6 @@
 // Parallel MatrixMarket (.mtx) loader → CSR.
 //
-// TPU-build host runtime component: the data-ingest path for SuiteSparse
+// Host runtime component: the data-ingest path for SuiteSparse
 // matrices. Python/scipy parses .mtx at ~10 MB/s; this parser chunks the
 // file across the thread pool, parses each chunk into thread-local triplet
 // buffers (arena-allocated), then builds CSR with the same two-level

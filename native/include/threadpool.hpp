@@ -1,11 +1,11 @@
 // Fixed-size thread pool over the unbounded lock-free MPMC queue.
 //
-// TPU-build host runtime replacement for the capabilities of the reference's
+// Host runtime replacement for the capabilities of the reference's
 // singleton pool (lib/concurrency/thread_pool/include/ThreadPool.hpp:25-43):
 // same commit-a-callable / drain-on-stop semantics, but the mutex+cv queue
 // becomes the hazard-pointer Michael-Scott queue (uqueue.hpp — unbounded,
 // like the reference's refcounted ConcurrentQueue, so commit never blocks
-// on queue depth; fixes VERDICT r1 missing #2) with a condvar only for
+// on queue depth) with a condvar only for
 // sleep/wake. parallel_for replaces OpenMP '#pragma omp parallel for' as
 // the host-side data-parallel primitive (used by the MatrixMarket parser).
 #pragma once

@@ -7,7 +7,7 @@
 // different reclamation design on the same algorithm skeleton: nodes are
 // protected with hazard pointers from the shared HazardDomain and retired
 // after the head swing — no per-node counter RMWs on the hot path. Fixes
-// VERDICT r1 missing #2: ThreadPool-style producers no longer spin on a
+// ThreadPool-style producers no longer spin on a
 // full bounded ring (mpmc_queue.hpp stays as the bounded/slot-reusing
 // fast path; this queue is the unbounded one).
 //

@@ -1,54 +1,66 @@
-"""auto_format picks the measured-fastest container per structure."""
+"""auto_format picks a container per structure, and every route matches
+the scipy oracle.
+
+The route cases carry over the oracle matrices of the removed
+window-gather ELL, per-row plane ELL and streaming-DIA kernels: the same
+matrices now go through the routes that serve them (DIA, ELL, CSR)."""
 
 import numpy as np
+import pytest
 import scipy.sparse as sps
 
 import jax.numpy as jnp
 
 from libhpc_tpu.bench import matrices
 from libhpc_tpu.sparse.auto import auto_format
+from libhpc_tpu.sparse.csr import CSR
+from libhpc_tpu.sparse.dia import DIA
+from libhpc_tpu.sparse.ell import ELL
+from libhpc_tpu.sparse.sbell import SBELL
 
 
-def _roundtrip(A):
+def _roundtrip(A, rtol=2e-3, atol=2e-3):
     c, mv = auto_format(A)
     x = np.linspace(-1, 1, A.shape[1]).astype(np.float32)
     y = np.asarray(mv(c, jnp.asarray(x)))
-    np.testing.assert_allclose(y, A @ x, rtol=2e-3, atol=2e-3)
-    return c
+    np.testing.assert_allclose(y, A @ x, rtol=rtol, atol=atol)
+    return c, mv
 
 
 def test_auto_poisson_is_dia():
-    from libhpc_tpu.sparse.dia import DIA
-
-    c = _roundtrip(matrices.poisson2d(64))
+    c, _ = _roundtrip(matrices.poisson2d(64))
     assert isinstance(c, DIA)
 
 
 def test_auto_fem_is_sbell():
-    from libhpc_tpu.sparse.sbell import SBELL
-
     A = matrices.block_random(200, block=8, blocks_per_row=6, seed=2,
                               half_band=5, far_fraction=0.05)
-    c = _roundtrip(A)
+    c, _ = _roundtrip(A)
     assert isinstance(c, SBELL)
 
 
-def test_auto_irregular_banded_is_sell():
-    # few random nnz/row in a band: SELL-P's (pane, sublane) buckets
-    # fragment (measured fill 12.4 here) — the chooser falls back to the
-    # rotation-gather SELL, which packs any within-window structure
-    from libhpc_tpu.ops.ell_pallas import SELL
-
+def _irregular_band(n=4000):
     # many distinct diagonals (not DIA-able), narrow band, regular-ish
-    n = 4000
     rng = np.random.default_rng(0)
     rows = np.repeat(np.arange(n), 4)
     cols = np.clip(rows + rng.integers(-120, 121, rows.size), 0, n - 1)
     A = sps.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)),
                        shape=(n, n)).tocsr()
     A.sum_duplicates()
-    c = _roundtrip(A)
-    assert isinstance(c, SELL)
+    return A
+
+
+def test_auto_irregular_banded_is_ell():
+    c, _ = _roundtrip(_irregular_band())
+    assert isinstance(c, ELL)
+
+
+def test_auto_irregular_banded_1m_rows_is_ell():
+    """The scalar-regular route at a million rows (4 random nnz/row in a
+    band): a padded-k ELL, never the SBELL block path."""
+    c, _ = _roundtrip(_irregular_band(1 << 20))
+    assert isinstance(c, ELL)
+    assert c.k == 8
 
 
 def test_auto_bf16():
@@ -66,11 +78,8 @@ def test_auto_bf16():
 
 def test_auto_scattered_dia_candidate_not_densified():
     """A few-diagonal matrix whose diagonals are nearly EMPTY must not
-    build the dense m*D DIA rectangle (ADVICE r4: gate on diagonal fill,
-    not just distinct-diagonal count)."""
-    from libhpc_tpu.sparse.dia import DIA
-    from libhpc_tpu.ops.dia_pallas import DiaPallas
-
+    build the dense m*D DIA rectangle (gate on diagonal fill, not just
+    distinct-diagonal count)."""
     n = 200_000
     rng = np.random.default_rng(1)
     # ~3 nnz per diagonal scattered along 8 long offsets -> fill ~1e-5
@@ -86,14 +95,14 @@ def test_auto_scattered_dia_candidate_not_densified():
                        shape=(n, n)).tocsr()
     A.sum_duplicates()
     c, mv = auto_format(A)
-    assert not isinstance(c, (DIA, DiaPallas))
+    assert not isinstance(c, DIA)
 
 
 def test_auto_large_scattered_no_memory_blowup():
-    """>=10M-nnz scattered matrix: the chooser must not host-densify
-    (the old A.tobsr((8,8)) path cost up to 64x memory — VERDICT r4 #7).
-    Peak traced via resource.getrusage RSS delta staying far below the
-    64x-densified size (~2.6 GB for this matrix)."""
+    """>=10M-nnz scattered matrix: the chooser must not host-densify (an
+    A.tobsr((8,8)) probe would cost up to 64x memory). Peak traced via
+    resource.getrusage RSS delta staying far below the 64x-densified
+    size (~2.6 GB for this matrix)."""
     import resource
 
     n = 2_000_000
@@ -106,8 +115,8 @@ def test_auto_large_scattered_no_memory_blowup():
     A.sum_duplicates()
     rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     # chooser must run its heuristics without densifying; we don't need
-    # the (huge) container itself — patch the terminal constructors to
-    # observe the ROUTE only
+    # the container itself — patch the terminal constructors to observe
+    # the ROUTE only
     import libhpc_tpu.sparse.auto as auto_mod
 
     route = {}
@@ -115,35 +124,149 @@ def test_auto_large_scattered_no_memory_blowup():
     class _Stop(Exception):
         pass
 
-    import libhpc_tpu.sparse.sbell as sbell_mod
-    import libhpc_tpu.ops.ell_pallas as ell_mod
+    def stopper(fmt):
+        def stop(*a, **k):
+            route["fmt"] = fmt
+            raise _Stop
+        return staticmethod(stop)
 
-    orig_sbell = sbell_mod.SBELL.from_scipy
-    orig_sell = ell_mod.sell_from_scipy
-
-    def stop_sbell(*a, **k):
-        route["fmt"] = "sbell"
-        raise _Stop
-
-    def stop_sell(*a, **k):
-        route["fmt"] = "sell"
-        raise _Stop
-
-    sbell_mod.SBELL.from_scipy = staticmethod(stop_sbell)
-    ell_mod.sell_from_scipy = stop_sell
+    orig = (SBELL.from_scipy, CSR.from_scipy)
+    SBELL.from_scipy = stopper("sbell")
+    CSR.from_scipy = stopper("csr")
     try:
         try:
             auto_mod.auto_format(A)
         except _Stop:
             pass
     finally:
-        sbell_mod.SBELL.from_scipy = staticmethod(orig_sbell)
-        ell_mod.sell_from_scipy = orig_sell
+        SBELL.from_scipy = staticmethod(orig[0])
+        CSR.from_scipy = staticmethod(orig[1])
     rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     # heuristic phase must stay under ~600 MB of new RSS (the densified
     # BSR alone would be ~2.6 GB)
     assert (rss1 - rss0) * 1024 < 600 * 1024 * 1024
-    # the chooser reached a terminal constructor (SELL probe fires first
-    # for non-blockish input; real sell_from_scipy would reject the wide
-    # windows and fall through to SBELL)
-    assert route.get("fmt") in ("sbell", "sell")
+    # scattered scalar entries: not block-dense, so the chooser heads
+    # for the scalar routes
+    assert route.get("fmt") == "csr"
+
+
+# ---------------------------------------------------------------------------
+# Route cases: each matrix through auto_format vs scipy, with the route
+# it must take.
+# ---------------------------------------------------------------------------
+
+
+def _banded(n, offs, base=1.0):
+    return sps.diags([np.full(n - abs(k), base + k) for k in offs], offs,
+                     shape=(n, n), format="csr", dtype=np.float32)
+
+
+def _irregular_rows(n=3000):
+    # rows with 0..7 entries, columns within a narrow band
+    rows, cols, vals = [], [], []
+    for r in range(n):
+        for i in range(r % 8):
+            rows.append(r)
+            cols.append(min(n - 1, max(0, r + i - 3)))
+            vals.append(float(i + 1))
+    A = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A.astype(np.float32)
+
+
+def _wide_scatter():
+    # one entry per row at column 37*r
+    rows = np.arange(128)
+    A = sps.coo_matrix((np.ones(128, np.float32), (rows, rows * 37)),
+                       shape=(128, 8 * 1024)).tocsr()
+    return A
+
+
+def _no_window(n=8192):
+    rng = np.random.default_rng(8)
+    rows = np.arange(n).repeat(2)
+    cols = np.concatenate([np.arange(n)[:, None],
+                           rng.integers(0, n, (n, 1))], axis=1).ravel()
+    A = sps.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                       shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+def _multiplicity(n=4096):
+    rows = np.concatenate([np.zeros(20, np.int64),
+                           np.arange(2048, 2068, dtype=np.int64)])
+    cols = np.concatenate([np.arange(0, 160, 8, dtype=np.int64),
+                           np.arange(0, 160, 8, dtype=np.int64)])
+    vals = np.linspace(1, 2, rows.size).astype(np.float32)
+    return sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+
+
+ROUTE_CASES = {
+    # banded, 5 offsets (formerly the window-gather ELL size sweep)
+    **{f"banded5_{n}": (lambda n=n: _banded(n, (-2, -1, 0, 1, 3)), DIA)
+       for n in (8, 111, 1000, 1024, 1048, 2500)},
+    "poisson48": (lambda: matrices.poisson2d(48), DIA),
+    "poisson96": (lambda: matrices.poisson2d(96), DIA),
+    "poisson128_multi_tile": (lambda: matrices.poisson2d(128), DIA),
+    "rect_random_500x1300": (lambda: sps.random(
+        500, 1300, density=0.01, format="csr", dtype=np.float32,
+        random_state=7).tocsr(), ELL),
+    "irregular_row_lengths": (_irregular_rows, DIA),
+    "wide_scatter": (_wide_scatter, CSR),
+    "banded_offsets_0_m1_2_17": (lambda: sps.diags(
+        [np.ones(9000 - k) for k in (0, 1, 2, 17)], [0, -1, 2, 17],
+        shape=(9000, 9000), format="csr", dtype=np.float32), DIA),
+    "fem_blocks": (lambda: matrices.block_random(
+        300, block=8, blocks_per_row=5, seed=3, half_band=4,
+        far_fraction=0.02), SBELL),
+    "no_window_restriction": (_no_window, ELL),
+    "rect_ragged_1111x2222": (lambda: sps.random(
+        1111, 2222, density=0.004, random_state=6, format="csr",
+        dtype=np.float32), ELL),
+    "empty_rows_multiplicity": (_multiplicity, CSR),
+    # banded with far offsets (formerly the streaming-DIA kernel sweep)
+    **{f"banded_far_{n}": (lambda n=n: _banded(n, (-70, -1, 0, 1, 65)),
+                           DIA)
+       for n in (1000, 8192, 9000, 40000)},
+    "wide_offsets": (lambda: sps.diags(
+        [np.ones(50000 - 9000), np.ones(50000), np.ones(50000 - 12288)],
+        [-9000, 0, 12288], shape=(50000, 50000), format="csr",
+        dtype=np.float32), DIA),
+    "rect_5000x7000": (lambda: sps.diags(
+        [np.ones(5000), np.ones(5000)], [0, 1500], shape=(5000, 7000),
+        format="csr", dtype=np.float32), DIA),
+    "wide_rect_1000x200000": (lambda: sps.diags(
+        [np.ones(1000)], [0], shape=(1000, 200000), format="csr",
+        dtype=np.float32), DIA),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTE_CASES))
+def test_auto_route_matches_scipy(name):
+    make, kind = ROUTE_CASES[name]
+    A = sps.csr_matrix(make(), dtype=np.float32)
+    c, mv = _roundtrip(A, rtol=1e-4, atol=1e-4)
+    assert isinstance(c, kind)
+
+
+@pytest.mark.parametrize("name", ["poisson48", "poisson64_pane_crossing"])
+def test_auto_route_chains(name):
+    """A @ (A @ x) through the chosen route matches scipy (square)."""
+    A = matrices.poisson2d(48 if name == "poisson48" else 64)
+    c, mv = auto_format(A)
+    x = np.linspace(-1, 1, A.shape[1]).astype(np.float32)
+    y2 = np.asarray(mv(c, mv(c, jnp.asarray(x))))
+    np.testing.assert_allclose(y2, A @ (A @ x), rtol=1e-3, atol=1e-3)
+
+
+def test_auto_empty_and_zero_rows():
+    A = sps.lil_matrix((2048, 2048), dtype=np.float32)
+    A[5, 7] = 2.0
+    A[2000, 1999] = -3.0
+    c, mv = auto_format(A.tocsr())
+    x = np.arange(2048, dtype=np.float32)
+    y = np.asarray(mv(c, jnp.asarray(x)))
+    assert y[5] == 14.0
+    assert y[2000] == -3.0 * 1999
+    assert np.count_nonzero(y) == 2

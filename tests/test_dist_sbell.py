@@ -55,35 +55,18 @@ def test_dist_sbell_banded_mostly_near(mesh):
         assert far_blocks < 0.05 * near_slots + 8 * dA.n_shards
 
 
-def test_dist_sbell_chunked_shards(mesh, monkeypatch):
-    """ADVICE r3: shards whose resident x-panes + output exceed VMEM_CAP
-    must run through host-precomputed chunk plans (uniform statics,
-    per-shard bounds threaded through shard_map) — never hit the
-    host-only planner at trace time."""
-    from libhpc_tpu.ops import spmv_pallas
-
+def test_dist_sbell_kernel_shards(mesh):
+    """The Triton SBELL kernel (Pallas interpreter) inside shard_map on a
+    larger operator: same result as scipy and as the XLA form."""
     A = matrices.block_random(3000, block=8, blocks_per_row=6, seed=5)
-    # walk the cap down until the offd plan actually splits into multiple
-    # chunks (the exact threshold depends on the shards' pane windows);
-    # caps below every stripe's own window hit the single-stripe guard
-    dA = None
-    for cap in (68_000, 60_000, 52_000, 44_000):
-        monkeypatch.setattr(spmv_pallas, "VMEM_CAP", cap)
-        try:
-            cand = DistSBELL.from_scipy(A, 8)
-        except ValueError:
-            break
-        if cand.offd_chunk is not None:
-            dA = cand
-            if cand.offd_bounds.shape[1] > 1:
-                break
-    assert dA is not None and dA.offd_chunk is not None
-    assert dA.offd_bounds.shape[1] > 1
-    dA = dA.shard(mesh)
+    dA = DistSBELL.from_scipy(A, 8).shard(mesh)
     n = dA.shape[1]
     x = np.linspace(-1.0, 1.0, n).astype(np.float32)
     xs = jax.device_put(jnp.asarray(x), NamedSharding(mesh, P("x")))
-    y = np.asarray(dist_sbell_spmv_fn(dA, mesh)(xs))
+    y = np.asarray(dist_sbell_spmv_fn(dA, mesh, impl="kernel",
+                                      interpret=True)(xs))
     expect = A @ x[:A.shape[1]]
     np.testing.assert_allclose(y[:A.shape[0]], expect, rtol=1e-4,
                                atol=1e-4)
+    y_xla = np.asarray(dist_sbell_spmv_fn(dA, mesh, impl="xla")(xs))
+    np.testing.assert_allclose(y, y_xla, rtol=1e-5, atol=1e-5)

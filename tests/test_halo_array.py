@@ -1,4 +1,4 @@
-"""HaloArray container tests (VERDICT r1 #6).
+"""HaloArray container tests.
 
 Mirrors the reference's HPCHighDimensionFlatArray behavior
 (lib/hpc/include/HPCHighDimensionFlatArray.hpp): negative indices address

@@ -1,5 +1,5 @@
-"""AMG-on-SBELL tests (VERDICT r3 #8): the V-cycle smooths through the
-pane-resident Pallas kernel; oracles are scipy direct solves."""
+"""AMG-on-SBELL tests: the V-cycle smooths through the
+pane-resident SBELL matvec; oracles are scipy direct solves."""
 
 import numpy as np
 import pytest
@@ -106,7 +106,7 @@ def test_amg_smoothed_aggregation_fewer_iters():
 
 
 def test_amg_setup_rejects_invalid_sweeps():
-    """pre/post validation (ADVICE r4): pre=0 silently behaved as pre=1,
+    """pre/post validation: pre=0 silently behaved as pre=1,
     and pre != post breaks the SPD property pcg_op relies on."""
     import pytest
 

@@ -18,16 +18,16 @@ def test_exclusive_scan(rng, n):
 
 
 @pytest.mark.parametrize("n", EDGE_SIZES)
-def test_exclusive_scan_pallas(rng, n):
+def test_exclusive_scan_f32(rng, n):
     x = rng.random(n).astype(np.float32)
-    got = np.asarray(scan.exclusive_scan_pallas(jnp.asarray(x)))
+    got = np.asarray(scan.exclusive_scan(jnp.asarray(x)))
     expect = (np.cumsum(x.astype(np.float64)) - x).astype(np.float32)
     np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-4)
 
 
-def test_exclusive_scan_pallas_int(rng):
+def test_exclusive_scan_int_5000(rng):
     x = rng.integers(0, 1000, size=5000).astype(np.int32)
-    got = np.asarray(scan.exclusive_scan_pallas(jnp.asarray(x)))
+    got = np.asarray(scan.exclusive_scan(jnp.asarray(x)))
     np.testing.assert_array_equal(got, np.cumsum(x) - x)
 
 
@@ -54,7 +54,10 @@ def test_segment_ops(rng):
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (8, 128), (100, 300), (257, 129)])
-def test_row_sum_pallas(rng, shape):
+def test_row_sum_segment(rng, shape):
+    """Row sums of a 2D array as a segment-sum over row ids."""
     x = rng.random(shape).astype(np.float32)
-    got = np.asarray(red.row_sum_pallas(jnp.asarray(x)))
+    rows = np.repeat(np.arange(shape[0], dtype=np.int32), shape[1])
+    got = np.asarray(red.segment_sum(jnp.asarray(x.ravel()),
+                                     jnp.asarray(rows), shape[0]))
     np.testing.assert_allclose(got, x.sum(axis=1), rtol=1e-4, atol=1e-5)

@@ -119,7 +119,7 @@ def test_spmv_transpose(rng):
 
 def test_dia_offset_guard():
     """A quasi-structured matrix (many distinct diagonals) must be rejected
-    by dia_spmv instead of compile-bombing (VERDICT r1 weak #7)."""
+    by dia_spmv instead of compile-bombing."""
     from libhpc_tpu.ops.spmv import MAX_DIA_OFFSETS, dia_spmv
     from libhpc_tpu.sparse import DIA
 

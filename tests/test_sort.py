@@ -124,3 +124,50 @@ def test_bitonic_extremes():
     x = np.array([0xFFFFFFFF, 0, 0xFFFFFFFF, 5, 0], np.uint32)
     got = np.asarray(srt.bitonic_sort(jnp.asarray(x)))
     np.testing.assert_array_equal(got, np.sort(x))
+
+
+# ---- adversarial sort cases (edge sizes, multi-level and segmented
+# sizes, extreme and repeated values) through the production sort_u32 ----
+
+def _sort_case(name, rng):
+    u = lambda n: rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    if name.startswith("n"):
+        return u(int(name[1:]))
+    if name in ("extremes", "segmented_extremes"):
+        x = u(2048 if name == "extremes" else 5120)
+        x[:100] = 0
+        x[100:200] = 0xFFFFFFFF
+        x[200:300] = 0x7FFFFFFF      # i32 sign boundary
+        x[300:400] = 0x80000000
+        return x
+    if name == "all_equal":
+        return np.full(4096, 0xDEADBEEF, np.uint32)
+    if name == "two_values":
+        return rng.choice(np.array([7, 2**31], np.uint32), size=4096)
+    x = np.sort(u(4096))
+    return x if name == "presorted" else x[::-1].copy()
+
+
+SORT_CASES = ["n1024", "n2048", "n4096", "n8192", "n3149", "n3000",
+              "n5120", "n5137", "n9216", "n9300", "n11264", "n11300",
+              "extremes", "segmented_extremes", "all_equal", "two_values",
+              "presorted", "reversed"]
+
+
+@pytest.mark.parametrize("name", SORT_CASES)
+def test_sort_u32_cases(rng, name):
+    x = _sort_case(name, rng)
+    got = np.asarray(srt.sort_u32(jnp.asarray(x)))
+    np.testing.assert_array_equal(got, np.sort(x))
+
+
+@pytest.mark.parametrize("name", ["n1", "n111", "n512", "n3987",
+                                  "two_values", "all_equal"])
+def test_argsort_u32_cases(rng, name):
+    """Sorted keys, and an order that is exactly numpy's stable argsort
+    (a permutation that keeps equal keys in input order)."""
+    x = _sort_case(name, rng)
+    s, order = srt.argsort_u32(jnp.asarray(x))
+    np.testing.assert_array_equal(np.asarray(s), np.sort(x))
+    np.testing.assert_array_equal(np.asarray(order),
+                                  np.argsort(x, kind="stable"))

@@ -1,4 +1,4 @@
-"""Block (BSR) SpGEMM tests — the MXU SpGEMM redesign (round 5).
+"""Block (BSR) SpGEMM tests.
 
 Oracle: scipy csr matmul on the padded operands, exactly the strategy of
 the scalar SpGEMM suite (test_solver_spgemm.py) and the reference's
@@ -40,10 +40,10 @@ def test_spgemm_bsr_random(m, k, n, da, db):
     _check(A, B)
 
 
-def test_spgemm_bsr_vpu_variant_exact():
+def test_spgemm_bsr_square_random():
     A = sps.random(128, 128, density=0.1, random_state=3, format="csr",
                    dtype=np.float32)
-    _check(A, A, mxu=False)
+    _check(A, A)
 
 
 def test_spgemm_bsr_pair_chunking():
@@ -80,3 +80,26 @@ def test_spgemm_bsr_rectangular_blocks_mismatch():
                        block=4)
     with pytest.raises(ValueError):
         spgemm_bsr(A, B)
+
+
+def test_bsr_to_scipy_stays_sparse():
+    """to_scipy builds from the blocks: a 1.6M x 1.6M operator with a few
+    blocks (a dense image would need ~10 TB) converts, duplicates summed
+    and zeros dropped."""
+    import jax.numpy as jnp
+
+    n = 8 * 200_000
+    blocks = np.zeros((3, 8, 8), np.float32)
+    blocks[0, 1, 2] = 1.5
+    blocks[1, 1, 2] = 2.0            # same block (0, 7) again: summed
+    blocks[2, 0, 0] = -1.0
+    indptr = np.zeros(n // 8 + 1, np.int32)
+    indptr[1:] = 2
+    indptr[-1] = 3
+    A = BSR(blocks=jnp.asarray(blocks),
+            indices=jnp.asarray(np.array([7, 7, 199_999], np.int32)),
+            indptr=jnp.asarray(indptr), shape=(n, n))
+    S = A.to_scipy()
+    assert S.shape == (n, n) and S.nnz == 2
+    assert S[1, 7 * 8 + 2] == 3.5
+    assert S[n - 8, n - 8] == -1.0

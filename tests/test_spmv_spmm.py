@@ -132,7 +132,7 @@ def test_dia_spmv_nonsquare(rng):
     np.testing.assert_allclose(got, A @ x, rtol=1e-4, atol=1e-4)
 
 
-# ---- dtype coverage (bf16 compute path for MXU-era deployments) ------------
+# ---- dtype coverage (bf16 compute path) ------------------------------------
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_spmv_dtypes(rng, dtype):

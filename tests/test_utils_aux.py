@@ -7,7 +7,7 @@ import jax.numpy as jnp
 
 from libhpc_tpu.sparse import CSR
 from libhpc_tpu.utils import validate, checkpoint
-from libhpc_tpu.utils.config import KernelConfig, RadixConfig
+from libhpc_tpu.utils.config import RadixConfig
 
 
 def good_csr():
@@ -83,12 +83,7 @@ def test_named_scope_runs():
     assert float(f(jnp.float32(2.0))) == 4.0
 
 
-def test_kernel_config_validation():
-    KernelConfig(tile_m=128, tile_n=256)
-    with pytest.raises(ValueError):
-        KernelConfig(tile_m=100)
-    with pytest.raises(ValueError):
-        KernelConfig(lane=64)
+def test_radix_config_validation():
     assert RadixConfig(bits_per_pass=8).n_bins == 256
     assert RadixConfig(bits_per_pass=8).n_passes == 4
     with pytest.raises(ValueError):
